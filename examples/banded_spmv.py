@@ -1,4 +1,4 @@
-"""RCM → DIA → banded SpMV: the TPU reordering payoff
+"""RCM → DIA → banded SpMV: the reordering payoff
 (reference: tutorials/004_cuda_spmv narrative, taken to its conclusion —
 after bandwidth reduction the gather-free DIA kernel applies)."""
 
@@ -6,34 +6,32 @@ import numpy as np
 
 from _common import load_symmetric_graph, parse_args
 
-import sparsebase_tpu as sb
+from sparsebase_tpu import DIA
 from sparsebase_tpu.bases import ReorderBase
-from sparsebase_tpu.convert.kernels import csr_to_dia
-from sparsebase_tpu.ops.kernels import banded_spmv, banded_spmv_pallas, dia_spmv_reference
+from sparsebase_tpu.models.pipelines import spmv
+from sparsebase_tpu.ops.kernels import dia_spmv_reference
 from sparsebase_tpu.ops.reorder import RCMReorder
 
 
 def main():
     args = parse_args(__doc__)
-    g = load_symmetric_graph(args.matrix)
+    g = load_symmetric_graph(args.matrix, device=args.device)
     import dataclasses
 
     g = dataclasses.replace(g, vals=np.ones(g.nnz, np.float32))
 
     order = RCMReorder().get_reorder(g)
     banded = ReorderBase.permute2d(order, g)
-    dia = csr_to_dia(banded)
+    dia = banded.convert(DIA)
     print(f"after RCM: {dia}")
 
     x = np.ones(g.nrows, np.float32)
-    y_xla = np.asarray(banded_spmv(dia, x))
-    y_pl = np.asarray(banded_spmv_pallas(dia, x))
+    y = np.asarray(spmv(dia, x))  # dispatches to the banded kernel
     y_ref = np.asarray(dia_spmv_reference(dia, x))
-    print("xla-rolls matches :", bool(np.allclose(y_xla, y_ref, rtol=1e-4, atol=1e-3)))
-    print("pallas matches    :", bool(np.allclose(y_pl, y_ref, rtol=1e-4, atol=1e-3)))
+    print("banded kernel matches:", bool(np.allclose(y, y_ref, rtol=1e-4, atol=1e-3)))
     # degree check: SpMV of ones over a pattern matrix = row degrees
     deg = np.diff(np.asarray(banded.indptr))
-    print("spmv(1) == degrees:", bool(np.allclose(y_ref, deg)))
+    print("spmv(1) == degrees   :", bool(np.allclose(y_ref, deg)))
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Distributed preprocessing over a device mesh (TPU-only layer; no
+"""Distributed preprocessing over a device mesh (multi-device layer; no
 reference analogue — SURVEY.md §2.13 north star).
 
 Run with virtual devices on CPU:

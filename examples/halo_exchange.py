@@ -1,5 +1,5 @@
 """Boundary-proportional distributed kernels via halo exchange
-(TPU-only layer; no reference analogue — SURVEY.md §2.13 north star,
+(multi-device layer; no reference analogue — SURVEY.md §2.13 north star,
 round-2 scalability work).
 
 Each step ships only the vertex values neighboring shards actually

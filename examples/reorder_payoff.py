@@ -1,10 +1,10 @@
-"""The reorder→format payoff pipeline (tutorial 007; the TPU answer to
-the reference's CUDA SpMV tutorial, docs/pages/tutorials/004_cuda_spmv.md):
+"""The reorder→format payoff pipeline (tutorial 007; the answer to the
+reference's CUDA SpMV tutorial, docs/pages/tutorials/004_cuda_spmv.md):
 scramble a banded matrix, recover the band with RCM, convert to DIA —
 the format the reordering made legal — and check the gather-free SpMV
-against the flat-CSR result. On a v5e the DIA kernel runs ~30× the flat
-one at 64M nnz (R4_TPU.json §B); this example verifies the pipeline's
-semantics at demo scale on any backend."""
+against the flat-CSR result. This example verifies the pipeline's
+semantics at demo scale on any backend; ``chip_smoke.py`` phase B runs
+the same path at HPCG's size on the GPU."""
 
 import numpy as np
 from _common import parse_args
@@ -44,7 +44,7 @@ def main():
     y_flat = np.asarray(spmv(banded, x))
     y_dia = np.asarray(spmv(dia, x))  # gather-free banded kernel
     assert np.allclose(y_flat, y_dia, atol=1e-3)
-    print("flat-CSR and DIA SpMV agree; on TPU the DIA path is ~30x faster")
+    print("flat-CSR and DIA SpMV agree")
 
 
 if __name__ == "__main__":

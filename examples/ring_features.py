@@ -1,5 +1,5 @@
-"""Ring-collective MXU features + distributed components/SlashBurn
-(TPU-only layer; the reference computes Jaccard on one GPU —
+"""Ring-collective matmul features + distributed components/SlashBurn
+(multi-device layer; the reference computes Jaccard on one GPU —
 feature/jaccard_weights_cuda.cu — and triangles/SlashBurn sequentially).
 
 Neighborhood intersections are entries of A·Aᵀ / A², so the distributed

@@ -7,15 +7,15 @@ from pathlib import Path
 
 HERE = Path(__file__).parent
 SKIP = {"run_all_examples.py", "_common.py"}
-# TPU-touching examples excluded from CPU smoke runs unless --device
-DEVICE_ONLY = {"spmv_tpu.py"}
+# timing examples, run only with --device (on the GPU)
+DEVICE_ONLY = {"spmv_device.py"}
 
 
 def main():
     use_device = "--device" in sys.argv
     env = dict(os.environ)
     if not use_device:
-        env["JAX_PLATFORMS"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"  # children stay off the GPU
     failed = []
     for script in sorted(HERE.glob("*.py")):
         if script.name in SKIP or (script.name in DEVICE_ONLY and not use_device):

@@ -1,5 +1,6 @@
-"""Jitted SpMV with reorder comparison on TPU (reference:
-tutorials/004_cuda_spmv — the CUDA SpMV tutorial, TPU-native)."""
+"""Jitted SpMV with reorder comparison on the device (reference:
+tutorials/004_cuda_spmv — the CUDA SpMV tutorial). Run with --device for
+the GPU."""
 
 import time
 
@@ -23,11 +24,11 @@ def time_spmv(csr, reps=10):
     c = dataclasses.replace(csr, vals=vals).to_device()
     x = jnp.ones((csr.ncols,), jnp.float32)
     f = jax.jit(spmv_csr)
-    float(np.asarray(f(c, x)[:1])[0])  # warm
+    jax.block_until_ready(f(c, x))  # compile
     t0 = time.perf_counter()
     for _ in range(reps):
         y = f(c, x)
-    float(np.asarray(y[:1])[0])  # force completion
+    jax.block_until_ready(y)
     return (time.perf_counter() - t0) / reps
 
 

@@ -1,6 +1,6 @@
-"""sparsebase_tpu — a TPU-native sparse data preprocessing engine.
+"""sparsebase_tpu — a JAX sparse data preprocessing engine.
 
-A ground-up JAX/XLA/Pallas redesign with the capabilities of SparseBase
+A ground-up JAX/XLA redesign with the capabilities of SparseBase
 (sparcityeu/SparseBase): sparse containers (CSR/COO/CSC/Array) as JAX
 pytrees, a conversion graph, reordering/permutation/partitioning/feature
 ops with auto-converting dispatch, sparse I/O, graph/hypergraph objects,
@@ -18,7 +18,7 @@ Layer map (mirrors SURVEY.md §1):
     formats      CSR / COO / CSC / DenseArray pytrees
     context      Host / Device / Mesh placement
     utils        exceptions, logger, dtype machinery
-    parallel     mesh-sharded formats + distributed ops (TPU-only layer)
+    parallel     mesh-sharded formats + distributed ops (multi-device layer)
 """
 
 __version__ = "0.1.0"

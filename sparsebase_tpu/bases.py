@@ -1,6 +1,6 @@
 """Static façades: the "easy" API.
 
-TPU-native analogue of the reference bases layer
+JAX-native analogue of the reference bases layer
 (reference: src/sparsebase/bases/iobase.h:46-390,
 reorder_base.h:29-708, graph_feature_base.h:20-135). Each façade is a
 class of static one-liners delegating to readers/ops.

@@ -1,12 +1,12 @@
 """Execution-place abstraction: where a format's arrays live.
 
-TPU-native redesign of the reference context layer
+JAX-native redesign of the reference context layer
 (reference: src/sparsebase/context/context.h:18-21, cpu_context.h:12,
 cuda_context_cuda.cuh:14-19). The reference distinguishes CPU vs
 CUDA(device_id); here the axes are:
 
 * ``HostContext``            — numpy arrays in host RAM
-* ``DeviceContext(device)``  — jax.Arrays committed to one device (TPU/CPU)
+* ``DeviceContext(device)``  — jax.Arrays committed to one device (GPU/CPU)
 * ``MeshContext(mesh, spec)``— jax.Arrays sharded over a ``jax.sharding.Mesh``
                                with a ``PartitionSpec`` per array role
 
@@ -68,9 +68,9 @@ class MeshContext(Context):
     """Arrays are sharded over a device mesh.
 
     ``axis`` names the mesh axis over which the leading (row/vertex)
-    dimension of sparse structures is partitioned. This is the TPU-native
+    dimension of sparse structures is partitioned. This is the JAX-native
     analogue of the reference's CUDA multi-device story (peer-to-peer copy,
-    converter/converter_cuda.cu:12-22) — except transfers ride ICI
+    converter/converter_cuda.cu:12-22) — except transfers ride
     collectives inserted by XLA rather than explicit P2P memcpy.
     """
 

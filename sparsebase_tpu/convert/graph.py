@@ -1,6 +1,6 @@
 """Conversion graph: registry + BFS path-finding + chain application.
 
-TPU-native analogue of the reference converter
+JAX-native analogue of the reference converter
 (reference: src/sparsebase/converter/converter.h:65-350, converter.cc —
 ``ConversionMap`` registration :124-128, ``ConversionBFS`` :138-195,
 ``GetConversionChain`` :197-213, ``ApplyConversionChain`` :253-). The
@@ -232,8 +232,9 @@ def _register_builtin_edges():
     register_conversion(CSC, COO, k.csc_to_coo)
     register_conversion(CSR, CSC, k.csr_to_csc)
     register_conversion(CSC, CSR, k.csc_to_csr)
-    register_conversion(CSR, DIA, k.csr_to_dia)
-    register_conversion(DIA, CSR, k.dia_to_csr)
+    # offsets become static metadata through a host sync: not jittable
+    register_conversion(CSR, DIA, EagerConversion(k.csr_to_dia))
+    register_conversion(DIA, CSR, EagerConversion(k.dia_to_csr))
     register_conversion(CSR, ELL, EagerConversion(k.csr_to_ell))
     register_conversion(ELL, CSR, EagerConversion(k.ell_to_csr))
 

@@ -1,6 +1,6 @@
 """Format-conversion kernels (dual backend: numpy on host, XLA on device).
 
-TPU-native redesign of the reference conversion functions
+JAX-native redesign of the reference conversion functions
 (reference: src/sparsebase/converter/converter_order_two.cc — COO→CSR
 counting + prefix-sum :163-214, CSR→COO row expansion :72-118, COO→CSC
 column counting :21-70, CSR→CSC composite :120-128). Differences:
@@ -8,7 +8,7 @@ column counting :21-70, CSR→CSC composite :120-128). Differences:
 * Sort-based formulations replace sequential counting loops: histogram =
   ``bincount`` + ``cumsum``; row expansion = vectorized ``searchsorted``;
   (col, row) reorder = stable key-sort. All are single XLA ops that map
-  onto the VPU/sort units — no scalar loops.
+  onto vectorized sorts and elementwise passes — no scalar loops.
 * CSC is a **full node**: CSC→COO/CSR edges exist (the reference leaves
   CSC a sink, SURVEY.md §2.3).
 * Move-vs-copy distinction is unnecessary (immutable arrays).
@@ -44,9 +44,9 @@ def _indptr_from_counts(xp, counts, nnz_dtype):
 def indptr_from_sorted_rows(row, nrows: int, nnz: int):
     """CSR ``indptr`` from a row-major-sorted COO row array — device kernel.
 
-    The histogram formulation (``bincount`` = scatter-add) costs ~6.6 ns/nnz
-    on v5e (measured, tools/microbench.py); this boundary formulation costs
-    one unstable 1-key sort (~3.2 ns/nnz) plus O(n) work:
+    In place of the histogram formulation (``bincount`` = scatter-add),
+    this boundary formulation costs one unstable 1-key sort plus O(n)
+    work:
 
     1. mark run heads (``row[k] != row[k-1]``) — each real row id appears
        exactly once among the heads, already in ascending row order;
@@ -85,9 +85,8 @@ def indptr_from_sorted_rows_blocked(row, nrows: int, nnz: int, block: int = 512)
     """CSR ``indptr`` from row-major-sorted rows — blocked-compaction
     formulation of :func:`indptr_from_sorted_rows`.
 
-    The global 1-key boundary sort costs ~3.7 ns/nnz on v5e; per-row
-    ``lax.sort`` over a (B, K) reshape costs ~0.23 ns/elem (BENCH_local.md
-    rowsort rows). Run heads are sorted to the *front of each K-block*
+    In place of one global 1-key boundary sort, per-row ``lax.sort`` over
+    a (B, K) reshape: run heads are sorted to the *front of each K-block*
     instead of globally, then compacted with O(n) work:
 
     1. mark run heads, key = row at heads else ``nrows`` (sorts last);
@@ -150,9 +149,9 @@ def indptr_from_sorted_rows_blocked(row, nrows: int, nnz: int, block: int = 512)
 
 def expand_row_table(table, indptr, nnz: int, out_dtype=None):
     """``out[k] = table[r(k)]`` for integer ``table`` over CSR row blocks —
-    without an nnz-sized random gather (~8.8 ns/nnz on v5e): the value is
-    piecewise constant over the contiguous row blocks, so scatter per-row
-    deltas at the row starts and prefix-sum (~0.6 ns/nnz). Empty rows stack
+    without an nnz-sized random gather: the value is piecewise constant
+    over the contiguous row blocks, so scatter per-row deltas at the row
+    starts and prefix-sum. Empty rows stack
     their deltas on one slot (the add telescopes); trailing empty rows
     scatter out of bounds and are dropped. Integer tables only (float
     deltas would accumulate rounding)."""
@@ -170,16 +169,14 @@ def coo_to_csr(coo: COO) -> CSR:
     """COO→CSR relying on the row-major sort invariant
     (parity: CooCsrFunctionConditional, converter_order_two.cc:163-214).
     Host: histogram + prefix sum. Device: sorted-runs boundary kernel
-    (:func:`indptr_from_sorted_rows`), ~2x cheaper than the scatter-add
-    histogram on v5e."""
+    (:func:`indptr_from_sorted_rows_blocked`) instead of a scatter-add
+    histogram."""
     xp = xp_for(coo.row, coo.col)
     nnz_dtype = coo.row.dtype
     if xp is np:
         counts = _bincount(xp, coo.row, coo.nrows, nnz_dtype)
         indptr = _indptr_from_counts(xp, counts, nnz_dtype)
     else:
-        # round 4: blocked compaction (2.97 ns/nnz) beats the global
-        # boundary sort (3.72) on v5e — R4_TPU.json section A
         indptr = indptr_from_sorted_rows_blocked(coo.row, coo.nrows, coo.nnz)
     return CSR(indptr, coo.col, coo.vals, coo.shape)
 
@@ -210,7 +207,7 @@ def sort_by_pairs(xp, major, minor, *payload, stable_payload: bool = True):
     Returns ``(major_sorted, minor_sorted, *payload_sorted)``. Device path
     is a single variadic ``jax.lax.sort`` with ``num_keys=2`` — one fused
     sort instead of two stable argsorts plus per-array gathers (the
-    argsort formulation costs ~3x more on TPU). ``None`` payload entries
+    argsort formulation). ``None`` payload entries
     pass through as ``None``.
 
     ``stable_payload=False`` permits unstable payload order among
@@ -276,8 +273,8 @@ def sort_by_pairs(xp, major, minor, *payload, stable_payload: bool = True):
         import jax
 
         # not is_stable: ties are exact duplicate (major, minor) pairs whose
-        # payload order is unobservable (duplicates accumulate); unstable
-        # variadic sort is measurably faster on TPU
+        # payload order is unobservable (duplicates accumulate), so the
+        # sort need not be stable
         outs = list(jax.lax.sort((major, minor, *live), num_keys=2, is_stable=False))
     result = outs[:2]
     it = iter(outs[2:])
@@ -395,10 +392,9 @@ def csc_to_csr(csc: CSC) -> CSR:
 
 
 def csr_to_ell(csr: CSR, width=None):
-    """CSR → ELL (row-padded). Entry costs one nnz-sized scatter
-    (~8 ns/nnz on v5e — the measured price of reaching the padded
-    layout, BENCH_local.md r3); once there, row permutation runs at
-    ~1 ns/nnz and per-row sorts at 0.36. ``width`` defaults to the max
+    """CSR → ELL (row-padded). Entry costs one nnz-sized scatter; once
+    there, row permutation is a 2-D row gather and column sorts are
+    per-row. ``width`` defaults to the max
     row degree (a small host sync — it becomes static metadata)."""
     from ..formats.ell import ELL
 

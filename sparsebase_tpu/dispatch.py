@@ -1,6 +1,6 @@
 """Operation dispatch with automatic input conversion.
 
-TPU-native analogue of the reference ``FunctionMatcherMixin``
+JAX-native analogue of the reference ``FunctionMatcherMixin``
 (reference: src/sparsebase/utils/function_matcher_mixin.h:40-418):
 an operation holds a registry mapping tuples of input format classes to
 implementation functions. Execution (``Execute`` :228-245 /

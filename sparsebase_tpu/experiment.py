@@ -1,6 +1,6 @@
 """Benchmark experiment harness.
 
-TPU-native analogue of the reference experiment layer
+JAX-native analogue of the reference experiment layer
 (reference: src/sparsebase/experiment/experiment_type.h:26-39,
 concrete_experiment.cc:34-91, experiment_helper.h:19-100). Same shape:
 a cartesian product of data loaders × file targets × preprocesses ×
@@ -8,7 +8,7 @@ kernels × repetitions, wall-clocking each kernel run and recording
 runtimes/results/auxiliary data keyed by
 ``"file,...,preprocess_id,kernel_id,run_index"``.
 
-TPU-specific additions over the reference:
+Additions over the reference:
 
 * kernels returning jax arrays are ``block_until_ready``'d before the
   stop timestamp (dispatch is async — without the sync you'd time the
@@ -26,25 +26,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 LoaderFn = Callable[[Sequence[str]], Any]
 PreprocessFn = Callable[[Any, Any, Any], Any]
 KernelFn = Callable[[Any, Any, Any, Any], Any]
-
-
-def _sync(x):
-    """Force completion of any jax computations in ``x``.
-
-    ``block_until_ready`` alone can return early on remote-tunnel
-    backends; additionally materializing one element of each leaf forces
-    the dependency chain to have executed."""
-    try:
-        import jax
-        import numpy as _np
-
-        x = jax.block_until_ready(x)
-        for leaf in jax.tree_util.tree_leaves(x):
-            if isinstance(leaf, jax.Array) and leaf.size:
-                _np.asarray(leaf.reshape(-1)[:1])
-        return x
-    except Exception:
-        return x
 
 
 class Experiment:
@@ -89,6 +70,10 @@ class ConcreteExperiment(Experiment):
 
     # -- execution (concrete_experiment.cc:34-91 loop) -----------------------
     def run(self, times: int = 1, store_auxiliary: bool = False):
+        # dispatch is asynchronous: each run ends in block_until_ready, so
+        # a timing covers the work and not only its enqueue
+        from jax import block_until_ready
+
         for loader, targets in self._loaders:
             for file_names, fparams in targets:
                 data = loader(file_names)
@@ -101,12 +86,12 @@ class ConcreteExperiment(Experiment):
                         self._auxiliary[f"preprocess,{pid},{fkey}"] = pdata
                     for kid, (kfn, kparams) in self._kernels.items():
                         for w in range(self.warmup):
-                            _sync(kfn(pdata, fparams, pparams, kparams))
+                            block_until_ready(kfn(pdata, fparams, pparams, kparams))
                         for i in range(times):
                             ctx = _maybe_trace(self.trace_dir, f"{pid}-{kid}-{i}")
                             with ctx:
                                 t0 = time.perf_counter()
-                                res = _sync(kfn(pdata, fparams, pparams, kparams))
+                                res = block_until_ready(kfn(pdata, fparams, pparams, kparams))
                                 dt = time.perf_counter() - t0
                             key = f"{fkey},{pid},{kid},{i}"
                             self._runtimes[key] = dt

@@ -1,6 +1,6 @@
 """Dense order-1 array format.
 
-TPU-native analogue of the reference ``Array<ValueType>``
+JAX-native analogue of the reference ``Array<ValueType>``
 (reference: src/sparsebase/format/array.h:16-36). Used for permutation
 vectors, feature outputs, heatmaps, and dense operands. A device-committed
 or mesh-sharded :class:`DenseArray` plays the role of the reference's

@@ -1,6 +1,6 @@
 """Format base machinery: pytree sparse containers.
 
-TPU-native redesign of the reference format hierarchy
+JAX-native redesign of the reference format hierarchy
 (reference: src/sparsebase/format/format.h:86-163,
 format_implementation.h:23-58, format_order_two.h:22-156,
 format_order_one.h:23-). Key departures, per the design mapping in

@@ -1,6 +1,6 @@
 """Coordinate (triplet) format.
 
-TPU-native analogue of the reference ``COO<IDType,NNZType,ValueType>``
+JAX-native analogue of the reference ``COO<IDType,NNZType,ValueType>``
 (reference: src/sparsebase/format/coo.h:26-, coo.cc). Invariant matches
 the reference: entries sorted row-major by (row, col) — the reference
 constructor checks and sorts (coo.cc:112-140); here :func:`COO.new` does.

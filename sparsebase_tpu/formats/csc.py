@@ -1,6 +1,6 @@
 """Compressed Sparse Column format.
 
-TPU-native analogue of the reference ``CSC<IDType,NNZType,ValueType>``
+JAX-native analogue of the reference ``CSC<IDType,NNZType,ValueType>``
 (reference: src/sparsebase/format/csc.h:28-, csc.cc). Unlike the
 reference, where CSC is a conversion *sink* (no CSC→X edges registered,
 SURVEY.md §2.3), here CSC is a full node in the conversion graph: CSC→COO

@@ -1,6 +1,6 @@
 """Compressed Sparse Row format.
 
-TPU-native analogue of the reference ``CSR<IDType,NNZType,ValueType>``
+JAX-native analogue of the reference ``CSR<IDType,NNZType,ValueType>``
 (reference: src/sparsebase/format/csr.h:27-60, csr.cc). Invariants match
 the reference: rows delimited by ``indptr``; column indices sorted within
 each row (the reference constructor validates sortedness in parallel and
@@ -91,9 +91,8 @@ class CSR(Format):
         """Expand indptr to a per-nnz row id array (CSR→COO row vector).
 
         Device path: scatter row-start markers + prefix sum — XLA's
-        ``searchsorted`` lowers to a per-element binary-search loop that is
-        ~50x slower on TPU (2.8s vs 55ms at 16M nnz); one scatter-add and
-        one cumsum replace it exactly (empty rows double-mark the same
+        ``searchsorted`` lowers to a per-element binary-search loop; one
+        scatter-add and one cumsum replace it exactly (empty rows double-mark the same
         slot, which the cumsum absorbs)."""
         xp = xp_for(self.indptr, self.indices)
         if xp is np:

@@ -1,10 +1,10 @@
 """DIA (diagonal) format — the banded-matrix container.
 
 No direct reference analogue (the reference stops at CSR/COO/CSC); DIA
-is the natural TPU target for matrices *after* bandwidth-reducing
+is the natural device target for matrices *after* bandwidth-reducing
 reordering (RCM): storage is dense per diagonal, so SpMV needs no
-gathers or scatters at all — it runs on the VPU as shifted elementwise
-multiply-adds (see ops/kernels/banded_spmv.py, the Pallas kernel).
+gathers or scatters at all — it runs as shifted elementwise
+multiply-adds (see ops/kernels/banded_spmv.py).
 
 Layout: ``data[d, i] = A[i, i + offsets[d]]`` (zero where out of range),
 offsets sorted ascending.

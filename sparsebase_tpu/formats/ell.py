@@ -1,37 +1,17 @@
-"""ELL (row-padded) format — the TPU-native relocation fast path.
+"""ELL (row-padded) format — the static-shape relocation path.
 
 No direct reference analogue (the reference stops at CSR/COO/CSC); ELL
 is the layout SURVEY.md §7's design mapping calls "padded/blocked CSR
-... so everything is static-shape for XLA", justified by round-3 chip
-measurements (BENCH_local.md):
+... so everything is static-shape for XLA":
 
-* row permutation is 2-D row gathers: 0.98 ns/nnz at (6.25M, 16) one
-  array; a full rows-only relayout (cols+vals+lens at W=40, 2.5×
-  padding) measures 4.2 ns/nnz — 3× under the flat-CSR full permute
-  (13.2);
-* per-row column sorts: 0.36 ns/elem — ~13× under the global 2-key sort;
-* entry from flat CSR costs one scatter (~18 ns/nnz incl. the padded
-  re-layout), and a FULL symmetric permute pays the per-slot column
-  relabel (23.7 at 2.5× padding — the flat sort wins there), so ELL
-  pays off for pipelines applying repeated **row** relayouts (partition
-  grouping, block reorders) or ingesting padded directly — not for
-  one-shot full permutations (tools/bench_ell_permute.py).
-
-Round-4 end-to-end amortization measurement (R4_TPU.json §C, 64M nnz —
-the crossover numbers for the "stays padded" story):
-
-* **padding 1.0** (uniform degree): masked SpMV 588 vs flat 718 ms
-  (1.22×), rows-only relayout ~151 vs ~314 ms (2.1×), a combined
-  relayout+SpMV step 739 vs 1032 ms — the 1.18 s entry scatter
-  amortizes after **k ≈ 4 relayouts**, after which every step is ~1.4×
-  flat.
-* **padding 2.44** (Poisson rows): the masked SpMV's extra padded-slot
-  gathers dominate (1496 vs 1029 ms/step) — ELL **loses outright**; no
-  crossover exists.
-
-Rule of thumb: stay padded when padding ≲ 1.3 (bounded-degree meshes,
-degree-grouped or serpentine-balanced layouts) and the pipeline applies
-≥4 row relayouts; otherwise keep the flat sort pipeline.
+* row permutation is one 2-D row gather;
+* column sorts are per row, not one global 2-key sort;
+* entry from flat CSR costs one nnz-sized scatter, and a FULL symmetric
+  permute pays a per-slot column relabel, so ELL is meant for pipelines
+  that apply repeated **row** relayouts (partition grouping, block
+  reorders) or ingest padded directly, and for rows of near-uniform
+  degree (padding near 1). Where it pays off on the GPU is not yet
+  measured.
 
 Layout: ``cols[i, j]`` = j-th column id of row i (pad slots 0),
 ``vals[i, j]`` matching values (pad 0; ``None`` for pattern matrices),
@@ -100,8 +80,7 @@ class ELL(Format):
 
     def permute_rows(self, order):
         """Rows relaid so new row ``order[i]`` is old row ``i`` (inverse
-        permutation, package convention) — ONE 2-D row gather, the
-        measured 0.98 ns/nnz fast path."""
+        permutation, package convention) — ONE 2-D row gather."""
         xp = xp_for(self.cols)
         order = xp.asarray(order)
         # perm[new] = old: invert the inverse permutation
@@ -120,7 +99,7 @@ class ELL(Format):
 
     def sort_rows(self):
         """Sort each row's columns ascending (CSR invariant), carrying
-        values — per-row ``lax.sort`` (0.36 ns/elem on device); pad slots
+        values — per-row ``lax.sort``; pad slots
         keep sorting past every real column and are re-zeroed."""
         xp = xp_for(self.cols)
         mask = self.valid_mask()

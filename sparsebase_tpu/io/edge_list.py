@@ -1,6 +1,6 @@
 """Edge-list reader/writer.
 
-TPU-native analogue of the reference edge-list I/O
+JAX-native analogue of the reference edge-list I/O
 (reference: src/sparsebase/io/edge_list_reader.{h,cc} — options
 edge_list_reader.h:34-40; edge_list_writer.cc). Vectorized numpy parse
 replaces the per-line scalar loop.

@@ -2,22 +2,24 @@
 
 The PIGO-equivalent native I/O path (reference:
 src/sparsebase/external/pigo/pigo.hpp + io/pigo_*_reader.cc): mmap +
-OpenMP chunked parsing in C++ (fastio.cpp), loaded through ctypes. If
-the shared library is missing it is compiled on first use with g++; if
-no toolchain is available, callers fall back to the numpy parser
+OpenMP chunked parsing in C++ (fastio.cpp), loaded through ctypes. The
+library is compiled on first use with g++ and rebuilt whenever the
+source or flags change (``utils.native_build``); if no toolchain is
+available, callers fall back to the numpy parser
 (``available()`` returns False).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+from ...utils.native_build import ensure_built
 
 _HERE = Path(__file__).parent
 _SRC = _HERE / "fastio.cpp"
@@ -28,22 +30,10 @@ _build_failed = False
 
 
 def _build() -> bool:
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        "-fopenmp",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        str(_SRC),
-        "-o",
-        str(_LIB_PATH),
-    ]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        ensure_built(_SRC, _LIB_PATH, timeout=120)
         return True
-    except Exception:
+    except (subprocess.CalledProcessError, subprocess.TimeoutExpired, OSError):
         return False
 
 
@@ -54,10 +44,9 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        if not _LIB_PATH.exists() or _LIB_PATH.stat().st_mtime < _SRC.stat().st_mtime:
-            if not _build():
-                _build_failed = True
-                return None
+        if not _build():
+            _build_failed = True
+            return None
         try:
             lib = ctypes.CDLL(str(_LIB_PATH))
         except OSError:
@@ -126,11 +115,9 @@ def parse_entries(
     """Parse `u v [w]` lines after byte `offset`; returns (rows, cols, vals).
 
     ``out=(rows, cols, vals)`` reuses caller-provided int64/int64/float64
-    buffers (sliced to the parsed count). On this image first-touch page
-    faults cost ~60 µs/4K page (Firecracker lazy memory provisioning —
-    measured, BENCH_local.md round 3), so reusing warm buffers across
-    parses is a 10-20× end-to-end win at the 50M-nnz scale; the parse
-    kernel itself runs at ~44M nnz/s on the 2 cores."""
+    buffers (sliced to the parsed count): on hosts where first-touch
+    page faults are slow, reusing warm buffers across parses saves the
+    fault cost of fresh multi-GB allocations."""
     lib = _load()
     n = count_entries(path, offset)
     if out is not None:

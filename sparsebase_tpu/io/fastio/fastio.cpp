@@ -1,6 +1,6 @@
 // Native parallel sparse-file parser (PIGO-equivalent).
 //
-// TPU-native analogue of the reference's vendored PIGO layer
+// JAX-native analogue of the reference's vendored PIGO layer
 // (reference: src/sparsebase/external/pigo/pigo.hpp, 3.9 kLoC;
 // io/pigo_mtx_reader.cc, io/pigo_edge_list_reader.cc): memory-mapped
 // input + OpenMP chunked numeric parsing. Exposed to Python through a

@@ -1,6 +1,6 @@
 """METIS .graph format reader/writer.
 
-TPU-native analogue of the reference METIS graph I/O
+JAX-native analogue of the reference METIS graph I/O
 (reference: src/sparsebase/io/metis_graph_reader.cc:16-107,
 metis_graph_writer.cc). Format: header ``n m [fmt [ncon]]``; one line per
 vertex listing ``[ncon vertex weights] (neighbor [edge weight])*``.

@@ -1,6 +1,6 @@
 """MatrixMarket (.mtx) reader/writer.
 
-TPU-native analogue of the reference MTX I/O
+JAX-native analogue of the reference MTX I/O
 (reference: src/sparsebase/io/mtx_reader.{h,cc} — header parse :29-120,
 coordinate read :380-496, array read :124-166; mtx_writer.{h,cc}).
 Feature parity:
@@ -10,7 +10,7 @@ Feature parity:
 * fields: ``pattern``, ``real``, ``double``, ``integer``, ``complex``
   (the reference accepts the ``complex`` header and keeps only the real
   column, mtx_reader.cc:78-80,170; here both columns are parsed — the
-  real part is kept by default (TPU pipelines are real-valued), or pass
+  real part is kept by default (device pipelines are real-valued), or pass
   a complex ``value_dtype`` (e.g. ``complex128``) to retain both parts)
 * symmetries: ``general``, ``symmetric``, ``skew-symmetric``
   (``hermitian`` rejected); symmetric expansion mirrors off-diagonal

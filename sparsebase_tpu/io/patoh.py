@@ -1,6 +1,6 @@
 """PaToH hypergraph file reader/writer.
 
-TPU-native analogue of the reference PaToH I/O
+JAX-native analogue of the reference PaToH I/O
 (reference: src/sparsebase/io/patoh_reader.cc:10-247,
 patoh_writer.cc). File layout:
 

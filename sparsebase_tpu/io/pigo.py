@@ -53,8 +53,7 @@ class PigoMTXReader(MTXReader):
         native parser already yields int64 row/col arrays, so build the
         COO from them directly (the generic path column_stacks into a
         float64 (n,3) body and re-casts — ~3 extra GB of first-touch
-        traffic at 100M nnz, which this VM's slow page faults make the
-        dominant ingest cost; BENCH_local.md round 3)."""
+        traffic at 100M nnz)."""
         opts = self.options
         if (
             not _fastio_enabled()

@@ -6,10 +6,10 @@ ingest → convert → reorder → permute → SpMV. These are packaged here as
 jittable pytree→pytree functions — the compute-path showcase of the
 framework.
 
-The op mix is tuned to measured v5e primitive costs (tools/microbench.py,
-BENCH_local.md): per nnz, random gathers cost ~8.8 ns/elem, scatter-adds
-~6.6, variadic 2-key sorts ~4.1, 1-key sorts ~3.1, and streaming passes
-(cumsum, elementwise) ~0.2. The pipeline therefore:
+The op mix keeps nnz-sized random accesses and scatters to a minimum
+and prefers sorts and streaming passes (cumsum, elementwise). Which
+variant is fastest on the GPU is not yet measured (ROADMAP Speed
+item 3). The pipeline:
 
 * builds ``indptr`` with the sorted-runs boundary kernel (one 1-key sort)
   instead of a histogram scatter-add;
@@ -21,9 +21,7 @@ BENCH_local.md): per nnz, random gathers cost ~8.8 ns/elem, scatter-adds
   (new_row, new_col, vals);
 * fuses the two irreducible nnz-sized random gathers (column relabel
   and x-vector, both indexed by ``coo.col``) into ONE gather from an
-  interleaved (n, 2) table — measured 120 ms vs 2×153 ms at 16M nnz
-  (2.5x; gather cost is per-index, not per-byte) — plus one 2-key sort:
-  the measured XLA-primitive optimum for these semantics on this chip.
+  interleaved (n, 2) table — plus one 2-key sort.
 """
 
 from __future__ import annotations
@@ -42,10 +40,10 @@ def spmv_csr(csr: CSR, x, method: str = "auto"):
 
     ``method``:
       * ``"cumsum"`` — inclusive prefix-sum of the per-entry products,
-        row sums read off as differences at the indptr boundaries. On
-        TPU this replaces a 16M-element scatter-add (~160 ms) with one
-        cumsum (~30 ms) plus two n-sized gathers. Rounding error grows
-        like O(eps·√nnz·|v|) from the long running sum.
+        row sums read off as differences at the indptr boundaries: one
+        cumsum plus two n-sized gathers in place of an nnz-sized
+        scatter-add. The error of a row sum scales with the magnitude of
+        the running sum, not of the row.
       * ``"segment"`` — per-row ``segment_sum`` (exact per-row
         accumulation; the default on host).
       * ``"auto"`` — ``cumsum`` on device arrays, ``segment`` otherwise.
@@ -104,12 +102,11 @@ def _permute_and_spmv(
     perm_for_counts=None,
 ):
     """Shared pipeline tail: given an inverse permutation ``ro`` (and the
-    CSR structure of the input), apply the symmetric permutation with the
-    measured-optimal op mix (one fused pair gather + one 2-key sort) and
-    compute ``y = P·(A@x)``.
+    CSR structure of the input), apply the symmetric permutation (one
+    fused pair gather + one 2-key sort) and compute ``y = P·(A@x)``.
 
-    Round-5 y-branch variants (VERDICT r4 #2; measured in
-    tools/r5_perf.py / R5_TPU.json):
+    Variants of the y branch, kept until the GPU picks one (ROADMAP
+    Design item 3):
 
     * ``boundary_diff`` — read the running sum once at all n+1 indptr
       boundaries and difference (ONE n-sized gather) instead of two
@@ -121,12 +118,7 @@ def _permute_and_spmv(
       payload and reduce per NEW row (cumsum + new_indptr boundary
       diff), eliminating the y scatter entirely.
 
-    Measured at 100M nnz (R5_TPU.json B): baseline 18.17 ns/nnz,
-    **boundary_diff 17.34 (the new default)**, fused_scatter 20.05
-    (LOSES — unlike the pair gather, the (n, 2) scatter is NOT
-    per-index-priced on this part), post_sort 17.91 (the 3rd sort
-    payload costs more than the scatter it removes). Headline with the
-    winner: 58.1M nnz/s.
+    ``boundary_diff`` is the default.
     """
     n = coo.nrows
     nnz = coo.nnz
@@ -197,10 +189,8 @@ def _permute_and_spmv(
         else:
             y_old = run[indptr[1:]] - run[indptr[:-1]]
     # perm (forward permutation) turns the n-sized scatters below into
-    # gathers — MEASURED SLOWER in the composed pipeline (R4_TPU_d2/
-    # d3.json: 18.5 vs 17.7 ns/nnz at 100M; the unique-index permutation
-    # scatter fuses better than the extra gather chain), so callers leave
-    # perm=None; the path stays for re-measurement on other hardware.
+    # gathers; callers leave perm=None until the GPU measurement of
+    # ROADMAP Design item 3.
     if perm is not None:
         y = y_old[perm]  # y[new] = (A@x)[perm[new]]
         counts_out = counts_new
@@ -245,9 +235,7 @@ def preprocess_pipeline(coo: COO, x):
     nnz = coo.nnz
     idt = coo.row.dtype
 
-    # -- COO→CSR (conversion) ------------------------------------------------
-    # round 4: blocked-compaction indptr (2.97 ns/nnz measured vs 3.72
-    # for the global boundary sort — R4_TPU.json section A)
+    # -- COO→CSR (conversion): blocked-compaction indptr ----------------------
     from ..convert.kernels import indptr_from_sorted_rows_blocked
 
     indptr = indptr_from_sorted_rows_blocked(coo.row, n, nnz)
@@ -262,13 +250,9 @@ def preprocess_pipeline(coo: COO, x):
 
 def preprocess_pipeline_v2(coo: COO, x, *, block: int = 512, blocked_reduce: bool = True):
     """Experimental variant of :func:`preprocess_pipeline` exposing the
-    block size and the two-level blocked SpMV reduction. Round-4 chip
-    measurements (R4_TPU.json): the blocked ``indptr`` wins (now the
-    default in :func:`preprocess_pipeline`); ``blocked_reduce`` LOSES to
-    the global cumsum (853 vs 770 ms y-branch at 100M nnz — its four
-    n-sized gathers cost more than the one 39 ms nnz cumsum), so the
-    default pipeline keeps cumsum. Kept for re-measurement on future
-    hardware. y differs from v1 only by f32 summation association."""
+    block size and the two-level blocked SpMV reduction in place of the
+    global cumsum. Kept until the GPU measurement of ROADMAP Design
+    item 3. y differs from v1 only by f32 summation association."""
     from ..convert.kernels import indptr_from_sorted_rows_blocked
 
     n = coo.nrows
@@ -339,8 +323,7 @@ def spmv(fmt, x, context=None):
     """Format-polymorphic SpMV with auto-conversion dispatch — the
     user-facing capstone of the reorder→format payoff (tutorial 007):
     CSR runs the cumsum/segment kernel, ELL the masked row sums, DIA
-    the gather-free banded kernel (30× CSR when admissible —
-    R4_TPU.json §B), and anything else (COO, CSC, ...) auto-converts
+    the gather-free banded kernel, and anything else (COO, CSC, ...) auto-converts
     through the conversion graph, mirroring the reference's
     FunctionMatcherMixin dispatch (function_matcher_mixin.h:335-416)."""
     global _SPMV_OP

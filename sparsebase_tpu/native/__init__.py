@@ -6,7 +6,8 @@ the part the reference implements in C++ (reference:
 src/sparsebase/reorder/*.cc, partition/*.cc). graphkit.cpp provides
 C++17 implementations that mirror the numpy reference paths exactly
 (same deterministic tie-breaking), loaded through ctypes like io/fastio.
-If the shared library is missing it is compiled on first use with g++;
+The library is compiled from graphkit.cpp on first use with g++ and
+rebuilt whenever the source or flags change (``utils.native_build``);
 without a toolchain callers fall back to the numpy implementations
 (``available()`` returns False). The global toggle is
 ``config.use_graphkit``.
@@ -22,6 +23,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.native_build import ensure_built
+
 _HERE = Path(__file__).parent
 _SRC = _HERE / "graphkit.cpp"
 _LIB_PATH = _HERE / "libgraphkit.so"
@@ -34,20 +37,8 @@ _F64P = ctypes.POINTER(ctypes.c_double)
 
 
 def _build() -> bool:
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        "-fopenmp",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        str(_SRC),
-        "-o",
-        str(_LIB_PATH),
-    ]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=180)
+        ensure_built(_SRC, _LIB_PATH, timeout=180)
         return True
     except subprocess.CalledProcessError as e:
         from ..utils.logger import Logger
@@ -57,7 +48,7 @@ def _build() -> bool:
             + e.stderr.decode(errors="replace")[:2000]
         )
         return False
-    except Exception:
+    except (OSError, subprocess.TimeoutExpired):
         return False
 
 
@@ -68,10 +59,9 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        if not _LIB_PATH.exists() or _LIB_PATH.stat().st_mtime < _SRC.stat().st_mtime:
-            if not _build():
-                _build_failed = True
-                return None
+        if not _build():
+            _build_failed = True
+            return None
         try:
             lib = ctypes.CDLL(str(_LIB_PATH))
         except OSError:

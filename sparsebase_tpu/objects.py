@@ -1,6 +1,6 @@
 """Semantic graph wrappers over formats.
 
-TPU-native analogue of the reference object layer
+JAX-native analogue of the reference object layer
 (reference: src/sparsebase/object/object.h:28-87, object.cc:101-183):
 ``Object``/``AbstractObject`` become a single Python base holding a
 connectivity format; ``Graph`` carries n/m and optional multi-constraint

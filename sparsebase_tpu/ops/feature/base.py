@@ -1,6 +1,6 @@
 """Feature-extraction framework: Extractable features + fused extraction.
 
-TPU-native analogue of the reference feature framework
+JAX-native analogue of the reference feature framework
 (reference: src/sparsebase/feature/feature_preprocess_type.h:9-18,
 feature/extractor.{h,cc}, utils/extractable.h). A :class:`Feature` is an
 auto-converting :class:`Operation` whose ``extract`` returns a dict

@@ -1,6 +1,6 @@
 """Per-edge Jaccard similarity weights.
 
-TPU-native analogue of ``feature::JaccardWeights`` — the reference's only
+JAX-native analogue of ``feature::JaccardWeights`` — the reference's only
 GPU kernel (reference: src/sparsebase/feature/jaccard_weights_cuda.cu:
 8-150, binary-search warp kernel; host shell jaccard_weights.cc).
 Semantics: for every edge (u,v), J = |N(u) ∩ N(v)| / |N(u) ∪ N(v)|,
@@ -12,7 +12,7 @@ vectorized formulation does.
 
 Device path: the same binary-search-per-candidate shape as the CUDA
 kernel, vectorized as O(log dmax) rounds of gathered comparisons over a
-flat (nnz_expanded,) array — the TPU version of the reference's
+flat (nnz_expanded,) array — the vectorized version of the reference's
 ``bst`` loop (jaccard_weights_cuda.cu:70-91), with the ragged edge×degree
 expansion linearized by segment offsets instead of padded.
 """
@@ -54,6 +54,8 @@ def _jaccard_host(csr: CSR) -> np.ndarray:
 def _jaccard_device(csr: CSR):
     import jax.numpy as jnp
 
+    from ...utils.exact import ratio_f32
+
     indptr = csr.indptr.astype(jnp.int32)
     indices = csr.indices.astype(jnp.int32)
     n = csr.nrows
@@ -84,7 +86,7 @@ def _jaccard_device(csr: CSR):
     found = (left < hi) & (indices[jnp.minimum(left, nnz - 1)] == cand)
     inter = jnp.zeros((nnz,), jnp.int32).at[owner].add(found.astype(jnp.int32))
     union = deg[row] + deg[indices] - inter  # deg(u) + deg(v) - |N(u)∩N(v)|
-    return (inter.astype(jnp.float32) / jnp.maximum(union, 1)).astype(jnp.float32)
+    return ratio_f32(inter, jnp.maximum(union, 1))
 
 
 class JaccardWeights(Feature):
@@ -108,17 +110,11 @@ class JaccardWeights(Feature):
                     )
                 )
             return DenseArray(_jaccard_host(csr))
-        from ...config import get_config
-
         deg = csr.indptr[1:] - csr.indptr[:-1]
         expansion = int(np.asarray((deg[csr.row_of_nnz()]).sum()))
         if expansion > MAX_FLAT_EXPANSION:
-            if csr.nnz > get_config().sparse_common_device_max_nnz:
-                # past the measured-good size of the chunked kernel
-                # (chip fault guard, see triangles.py) — host fallback
-                return JaccardWeights._impl([csr.to_host()], params)
             # big-expansion tier (hubs: Σ deg(u)² slots would not fit):
-            # chunked owner-window kernel, numerically identical (round 5)
+            # chunked owner-window kernel, numerically identical
             from .sparse_common import jaccard_weights_sparse_device
 
             return DenseArray(jaccard_weights_sparse_device(csr))

@@ -1,7 +1,7 @@
 """Single-chip sparse common-neighbor kernel (chunked binary search).
 
 The big-n tier for TriangleCount / JaccardWeights on ONE device: the
-dense MXU path materializes an n×n tile (triangles.py MAX_DEVICE_DENSE_N
+dense bf16 matmul path materializes an n×n tile (triangles.py MAX_DEVICE_DENSE_N
 wall) and the flat ragged expansion materializes Σ deg(u)² slots
 (jaccard.py) — both explode past ~16k vertices / skewed degrees. This
 kernel is the single-chip port of the distributed sparse-ring
@@ -16,18 +16,14 @@ triples counted once; set semantics per triangles._dedup_adj),
 feature/jaccard_weights_cuda.cu:70-91 (the bst loop — per directed edge
 J = |∩| / |∪| with *instance* counting, matching _jaccard_host exactly).
 
-Launch structure (round-5 chip finding): ONE device program sweeping
-all blocks crashed the TPU worker once its execution ran long (~40 s of
-sequential gather chains at 4M nnz; the 400k-nnz case at ~4 s passed) —
-the same fault signature as the device-RCM while_loop at n=4M
-(ROUND4_NOTES.md). The sweep is therefore **host-chunked**: one jitted
-program processes GROUP_BLOCKS edge blocks (bounded device time per
-launch), and Python loops groups with the output carried device-resident
-(per-group scalars for triangles; an (nnz_pad,) counts buffer threaded
-through donation for Jaccard). Dispatch overhead is milliseconds per
-multi-second launch.
+Launch structure: the sweep is **host-chunked** — one jitted program
+processes GROUP_BLOCKS edge blocks, and Python loops groups with the
+output carried device-resident (per-group scalars for triangles; an
+(nnz_pad,) counts buffer threaded through donation for Jaccard). This
+bounds the length of one device program at the cost of one dispatch per
+group; the chunk sizes are not yet measured on the GPU.
 
-Trace notes (CLAUDE.md perf rules): static shapes — edges padded to a
+Trace notes: static shapes — edges padded to a
 group multiple, candidate chunks bounded by the *block* max degree via a
 traced-bound fori_loop, binary search statically unrolled to log2(wmax)
 rounds; all indexing is gathers (never searchsorted).
@@ -40,13 +36,9 @@ import functools
 import numpy as np
 
 E_CHUNK = 4096  # edges per block
-C_CHUNK = 64  # candidate positions per inner chunk (64: a 4096x64 tile
-# is still fully vectorized, and low-degree graphs skip 4x the wasted
-# positions a 256-wide tile pays at avg degree ~16 - r5 chip D section)
-GROUP_BLOCKS = 96  # blocks per device launch: bounds device time/launch
-# (~1.4 s at avg degree 16 - the watchdog faults at ~40 s programs, ~4 s
-# passes; gb sweep R5_TPU.json G: 32/96/256 -> 18.9/17.8/17.4 s at 4M
-# nnz - 96 takes most of the launch-overhead win inside the safe zone)
+C_CHUNK = 64  # candidate positions per inner chunk: low-degree graphs
+# skip the wasted positions a wider tile pays at average degree ~16
+GROUP_BLOCKS = 96  # edge blocks per device launch
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,6 +177,8 @@ def jaccard_weights_sparse_device(csr):
     not fit."""
     import jax.numpy as jnp
 
+    from ...utils.exact import ratio_f32
+
     if csr.nnz == 0:
         return jnp.zeros((0,), jnp.float32)
     out, _, _ = _sweep(csr, "jaccard")
@@ -194,6 +188,4 @@ def jaccard_weights_sparse_device(csr):
     deg = indptr[1:] - indptr[:-1]
     inter = out[: csr.nnz]
     union = deg[row] + deg[indices] - inter
-    return (inter.astype(jnp.float32) / jnp.maximum(union, 1)).astype(
-        jnp.float32
-    )
+    return ratio_f32(inter, jnp.maximum(union, 1))

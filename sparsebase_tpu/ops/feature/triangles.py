@@ -1,6 +1,6 @@
 """Triangle counting.
 
-TPU-native analogue of ``feature::TriangleCount``
+JAX-native analogue of ``feature::TriangleCount``
 (reference: src/sparsebase/feature/triangle_count.cc; params
 triangle_count.h:12-16 {countDirected}). Reference semantics:
 
@@ -14,7 +14,7 @@ Formulation: the reference's sequential hash-marker loops become a
 vectorized sorted-adjacency intersection — for each qualifying edge
 (v,w) the count of common filtered neighbors is found by binary search
 (`searchsorted`) of one adjacency list in the other, a flat ragged
-expansion on host and the TPU-friendly padded form on device (the same
+expansion on host and the static-shape padded form on device (the same
 shape as the reference's GPU Jaccard kernel, jaccard_weights_cuda.cu).
 """
 
@@ -80,7 +80,7 @@ def _searchsorted_segments(indices, lo, hi, targets):
 
 def _dedup_adj(indptr, indices, n):
     """Set-semantics adjacency: unique (row, col) pairs. All triangle
-    paths in this package (host, native, device MXU, ring) count each
+    paths in this package (host, native, device matmul, ring) count each
     distinct edge once — the reference's marker check dedups the closing
     edge but *iterates* the first two adjacency lists, so duplicated
     input entries multiply its count (triangle_count.cc:190-203); its
@@ -153,7 +153,7 @@ MAX_DEVICE_DENSE_N = 16384  # n² bf16 tile ≤ 512 MB
 
 
 def _device_dense_count(csr: CSR, directed: bool) -> int:
-    """MXU path: triangles as entries of A² — T = Σ A⊙A² / 6 (undirected,
+    """Dense path: triangles as entries of A² — T = Σ A⊙A² / 6 (undirected,
     symmetric A) or Σ Aᵀ⊙A² / 3 (directed 3-cycles). 0/1 bf16 operands
     with exact f32 accumulation (per-entry counts ≤ n < 2²⁴); the
     diagonal is zeroed so self-loops are ignored, matching the host
@@ -194,16 +194,9 @@ class TriangleCount(Feature):
         if xp_for(formats[0].indptr) is not np:
             if formats[0].nrows <= MAX_DEVICE_DENSE_N:
                 return _device_dense_count(formats[0], params.count_directed)
-            from ...config import get_config
-
-            if (
-                not params.count_directed
-                and formats[0].nnz <= get_config().sparse_common_device_max_nnz
-            ):
+            if not params.count_directed:
                 # big-n tier: chunked owner-window kernel, no densification
-                # (single-chip port of the round-4 sparse ring; round 5).
-                # Beyond sparse_common_device_max_nnz the kernel faulted
-                # the chip (R5_TPU.json D) — host fallback below.
+                # (single-chip port of the sparse ring)
                 from .sparse_common import triangle_count_sparse_device
 
                 return triangle_count_sparse_device(formats[0])

@@ -1,5 +1,5 @@
-"""Pallas TPU kernels for hot compute paths."""
+"""Device kernels for hot compute paths."""
 
-from .banded_spmv import banded_spmv, banded_spmv_pallas, dia_spmv_reference
+from .banded_spmv import banded_spmv, dia_spmv_reference
 
-__all__ = ["banded_spmv", "banded_spmv_pallas", "dia_spmv_reference"]
+__all__ = ["banded_spmv", "dia_spmv_reference"]

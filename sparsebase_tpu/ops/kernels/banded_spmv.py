@@ -1,28 +1,23 @@
-"""Banded (DIA) SpMV kernels: Pallas TPU kernel + XLA roll formulation.
+"""Banded (DIA) SpMV.
 
 The reference's performance showcase is CUDA SpMV after bandwidth-
-reducing reordering (reference: tutorials/004_cuda_spmv). On TPU the
-same story is told properly in DIA form: after RCM the matrix is a
-band, and banded SpMV needs **no gathers or scatters** —
+reducing reordering (reference: tutorials/004_cuda_spmv). In DIA form
+the reordered matrix is a band, and banded SpMV needs no gathers or
+scatters —
 
     y[i] = Σ_d  data[d, i] * x[i + offsets[d]]
 
-is a sum of shifted elementwise products: pure VPU work, sequential HBM
-reads — vs ~20 ns/nnz for XLA's generic gather + segment-sum path.
+is a sum of shifted elementwise products: k streaming reads of the band
+against k shifted windows of one x.
 
-Two implementations:
-
-* :func:`banded_spmv` — XLA: each diagonal's shift is a ``jnp.roll`` of
-  the padded x (contiguous copy), fused with the multiply-add. Robust,
-  jittable, ~2 passes over (k, n).
-* :func:`banded_spmv_pallas` — Pallas: grid over row blocks; ``data``
-  blocked (k, BLOCK) in VMEM; padded x resident in VMEM whole; each
-  block loads one **aligned** window and realizes the per-diagonal
-  shifts with static ``pltpu.roll`` (diagonal offsets are compile-time
-  constants — the kernel specializes per band structure, mirroring how
-  the reference's CUDA kernel is launched per matrix). Mosaic cannot
-  prove alignment of arbitrary dynamic slices in the lane dimension, so
-  all slices here start at multiples of the 512-wide block.
+:func:`banded_spmv` computes it in XLA: each diagonal's shift is a
+``dynamic_slice`` of the zero-padded x, multiplied and added in one
+unrolled chain that XLA fuses into a single pass. It specialises on the
+concrete diagonal offsets (compile-time constants), as the reference's
+CUDA kernel is launched per matrix. On one H100 it reads the 27-diagonal
+band of a 2M-row operator at 85-88% of the rate of a plain device copy;
+a Pallas kernel on the Triton route measured equal in f32 and about 20%
+slower with a bf16 band, so no hand-written kernel is kept (PERF.md).
 """
 
 from __future__ import annotations
@@ -32,12 +27,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ...formats.dia import DIA
-
-BLOCK = 4096  # best measured block on v5e (R4 followup F: 10.36 ms vs 12.07 at 512)
 
 
 def _static_offsets(dia: DIA):
@@ -49,119 +40,23 @@ def _static_offsets(dia: DIA):
     return tuple(int(o) for o in np.asarray(dia.offsets).tolist())
 
 
-def banded_spmv(dia: DIA, x):
-    """y = A @ x via per-diagonal rolls (XLA path)."""
-    offsets = _static_offsets(dia)
-    n, m = dia.shape
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def _banded_spmv_xla(offsets, shape, data, x):
+    n, m = shape
     pad = max((abs(o) for o in offsets), default=0)
-    x_f = jnp.asarray(x, jnp.float32)
-    x_pad = jnp.pad(x_f, (pad, pad + max(n - m, 0)))
+    x_pad = jnp.pad(x.astype(jnp.float32), (pad, pad + max(n - m, 0)))
     y = jnp.zeros((n,), jnp.float32)
-    data = jnp.asarray(dia.data, jnp.float32)
+    data = data.astype(jnp.float32)
     for d, off in enumerate(offsets):
         seg = jax.lax.dynamic_slice(x_pad, (pad + off,), (n,))
         y = y + data[d] * seg
     return y
 
 
-def _kernel(offsets, pad_al, block, x_ref, data_ref, y_ref):
-    # band values may arrive bf16 (half the strided-read bytes — the
-    # kernel's measured limiter); products accumulate in f32 regardless
-    width = block + 2 * pad_al
-    i0 = pl.multiple_of(pl.program_id(0) * block, block)
-    window = x_ref[:, pl.ds(i0, width)]  # (1, width), aligned start
-    acc = jnp.zeros((1, block), jnp.float32)
-    for d, off in enumerate(offsets):  # static unroll
-        # static (compile-time-constant) unaligned slice: Mosaic lowers
-        # the lane shift itself
-        s = pad_al + off
-        seg = window[:, s : s + block]
-        acc = acc + data_ref[d, :].astype(jnp.float32)[None, :] * seg
-    y_ref[:, :] = acc
-
-
-def _kernel_tiled(offsets, pad_al, block, x_ref, data_ref, y_ref):
-    """Same math as :func:`_kernel` but the band arrives as ONE
-    contiguous (1, k, block) tile (see the relayout in the caller) —
-    one DMA per program instead of k strided segments."""
-    width = block + 2 * pad_al
-    i0 = pl.multiple_of(pl.program_id(0) * block, block)
-    window = x_ref[:, pl.ds(i0, width)]
-    acc = jnp.zeros((1, block), jnp.float32)
-    for d, off in enumerate(offsets):
-        s = pad_al + off
-        seg = window[:, s : s + block]
-        acc = acc + data_ref[0, d, :].astype(jnp.float32)[None, :] * seg
-    y_ref[:, :] = acc
-
-
-def banded_spmv_pallas(
-    dia: DIA,
-    x,
-    interpret: bool | None = None,
-    block: int = BLOCK,
-    tiled: bool = False,
-):
-    """y = A @ x via the Pallas kernel (defaults to interpreter off-TPU)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    offsets = _static_offsets(dia)
-    n, m = dia.shape
-    k = dia.num_diagonals
-    pad = max((abs(o) for o in offsets), default=0)
-    pad_al = pl.cdiv(max(pad, 1), 128) * 128  # aligned window margin
-    n_pad = pl.cdiv(n, block) * block
-
-    # keep a bf16 band as bf16 (halves the strided reads — the measured
-    # limiter); everything else promotes to f32. Accumulation is f32
-    # either way.
-    data = jnp.asarray(dia.data)
-    if data.dtype != jnp.bfloat16:
-        data = data.astype(jnp.float32)
-    if n_pad != n:
-        data = jnp.pad(data, ((0, 0), (0, n_pad - n)))
-    x_f = jnp.asarray(x, jnp.float32)
-    # layout: x_pad[pad_al + t] == x[t]; trailing margin covers the last
-    # window (n_pad + pad_al) plus the largest positive offset
-    total = n_pad + 2 * pad_al
-    x_pad = jnp.zeros((total,), jnp.float32).at[pad_al : pad_al + min(m, total - pad_al)].set(
-        x_f[: min(m, total - pad_al)]
-    )
-
-    if tiled:
-        # band relayout (k, n_pad) -> (nb, k, block): each program's tile
-        # is one contiguous DMA instead of k strided 4·block-byte
-        # segments. MEASURED SLOWER on the real chip (R4 followup §F:
-        # 16.1-17.6 ms vs 10.8 strided at 64M/33 diagonals) — the 272 MB
-        # transpose pass costs more than the strided DMA overhead it
-        # removes; kept measurable for band data that is ALREADY stored
-        # tiled (where the kernel itself would win).
-        nb = n_pad // block
-        datab = data.reshape(k, nb, block).transpose(1, 0, 2)
-        y = pl.pallas_call(
-            functools.partial(_kernel_tiled, offsets, pad_al, block),
-            out_shape=jax.ShapeDtypeStruct((1, n_pad), jnp.float32),
-            grid=(nb,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # full padded x resident
-                pl.BlockSpec((1, k, block), lambda i: (i, 0, 0)),
-            ],
-            out_specs=pl.BlockSpec((1, block), lambda i: (0, i)),
-            interpret=interpret,
-        )(x_pad.reshape(1, -1), datab)
-        return y[0, :n]
-    y = pl.pallas_call(
-        functools.partial(_kernel, offsets, pad_al, block),
-        out_shape=jax.ShapeDtypeStruct((1, n_pad), jnp.float32),
-        grid=(n_pad // block,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # full padded x resident
-            pl.BlockSpec((k, block), lambda i: (0, i)),
-        ],
-        out_specs=pl.BlockSpec((1, block), lambda i: (0, i)),
-        interpret=interpret,
-    )(x_pad.reshape(1, -1), data)
-    return y[0, :n]
+def banded_spmv(dia: DIA, x):
+    """y = A @ x via per-diagonal shifted slices (XLA path), compiled once
+    per band structure."""
+    return _banded_spmv_xla(_static_offsets(dia), dia.shape, jnp.asarray(dia.data), jnp.asarray(x))
 
 
 def dia_spmv_reference(dia: DIA, x):

@@ -1,6 +1,6 @@
 """Partitioner base: ops producing vertex→part labels.
 
-TPU-native analogue of the reference partition layer
+JAX-native analogue of the reference partition layer
 (reference: src/sparsebase/partition/partitioner.h:23-36). Every
 partitioner returns ``part[vertex] = part_id`` with labels in
 ``[0, num_partitions)``.

@@ -1,6 +1,6 @@
 """Hypergraph partitioning (PaToH-equivalent, column-net model).
 
-TPU-native analogue of ``partition::PatohPartition``
+JAX-native analogue of ``partition::PatohPartition``
 (reference: src/sparsebase/partition/patoh_partition.cc:31-130, wrapping
 external PaToH: builds column nets from a CSR — net j = the set of rows
 with a nonzero in column j, cell weights = column degrees — and calls
@@ -14,7 +14,7 @@ propagation on the bipartite cell↔net structure:
   oversized parts
 
 The objective tracked is connectivity-1 (``cutsize`` helper), PaToH's
-default metric. Both passes are O(pins) scatter-adds — VPU-friendly and
+default metric. Both passes are O(pins) scatter-adds — vectorized and
 dual-backend.
 """
 

@@ -1,6 +1,6 @@
 """Size-constrained label-propagation partitioning (PULP-equivalent).
 
-TPU-native analogue of ``partition::PulpPartition``
+JAX-native analogue of ``partition::PulpPartition``
 (reference: src/sparsebase/partition/pulp_partition.cc:30-69 wrapping the
 external PULP solver; params pulp_partition.h). PULP's core is
 degree-weighted label propagation under vertex/edge balance constraints
@@ -15,7 +15,7 @@ degree-weighted label propagation under vertex/edge balance constraints
    vertices to the best under-capacity part
 
 Every step is an O(nnz) scatter-add + an O(n·k) argmax — both map
-directly onto the VPU, and run under jit (static shapes) or in numpy.
+directly onto vectorized device ops, and run under jit (static shapes) or in numpy.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Native multilevel k-way graph partitioning (METIS-equivalent).
 
-TPU-native analogue of ``partition::MetisPartition``
+JAX-native analogue of ``partition::MetisPartition``
 (reference: src/sparsebase/partition/metis_partition.cc:33-90, wrapping
 external METIS ``METIS_PartGraphKway``/``Recursive``; 17-field params
 metis_partition.h:17-37). The reference delegates to a vendored solver;

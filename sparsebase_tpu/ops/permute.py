@@ -1,6 +1,6 @@
 """Permutation ops: apply (inverse-)permutations to formats.
 
-TPU-native analogue of the reference permute layer
+JAX-native analogue of the reference permute layer
 (reference: src/sparsebase/permute/permuter.h:22-52,
 permute_order_two.cc:30-95, permute_order_one.cc). Permutations follow
 the reference convention throughout: ``order[old_id] = new_id`` (an
@@ -42,8 +42,8 @@ def inverse_permutation(order) -> object:
 
 def _permute_ell(formats, params: "PermuteOrderTwoParams"):
     """Permute an ELL matrix in place of layout: the row move is ONE 2-D
-    row gather (~1 ns/nnz on v5e, BENCH_local.md r3 — the reason ELL
-    exists), the column relabel a masked gather + per-row sort."""
+    row gather (the reason ELL exists), the column relabel a masked
+    gather + per-row sort."""
     ell = formats[0]
     xp = xp_for(ell.cols, ell.lens)
     out = ell
@@ -73,8 +73,8 @@ def _permute_csr(formats, params: PermuteOrderTwoParams) -> CSR:
     Remap per-entry (row, col) ids by two gathers, re-sort (one stable
     argsort for row-only — column order within rows is preserved by
     stability; a two-pass lexsort when columns are remapped), rebuild
-    indptr by histogram+prefix-sum. This is ~3x cheaper on TPU than the
-    block-move + re-sort formulation (no scatters, minimal sorts) and
+    indptr by histogram+prefix-sum. Unlike the block-move + re-sort
+    formulation it needs no scatters and minimal sorts, and is
     identical in result to the reference
     (permute_order_two.cc:30-95 + the output CSR constructor's re-sort)."""
     csr: CSR = formats[0]
@@ -94,10 +94,10 @@ def _permute_csr(formats, params: PermuteOrderTwoParams) -> CSR:
     else:
         import jax.numpy as jnp
 
-        # new_row[k] = row_order[old_row[k]] without the 16M-from-1M-table
-        # gather (~160 ms at 16M nnz on v5e): row_order is piecewise
-        # constant over the contiguous CSR row blocks, so scatter its
-        # per-row deltas at the row-start offsets and prefix-sum (~50 ms).
+        # new_row[k] = row_order[old_row[k]] without an nnz-sized gather:
+        # row_order is piecewise constant over the contiguous CSR row
+        # blocks, so scatter its per-row deltas at the row-start offsets
+        # and prefix-sum.
         # Empty rows stack their deltas on one slot (the add absorbs them);
         # trailing empty rows scatter out of bounds and are dropped.
         ro = xp.asarray(row_order).astype(jnp.int32)

@@ -1,6 +1,6 @@
 """Approximate/exact minimum-degree fill-reducing ordering (AMD-equivalent).
 
-TPU-native analogue of ``reorder::AMDReorder``
+JAX-native analogue of ``reorder::AMDReorder``
 (reference: src/sparsebase/reorder/amd_reorder.cc:29-57, wrapping
 SuiteSparse ``amd_l_order``; params amd_reorder.h:27 {dense,
 aggressive}). The reference converts to <long,long> CSR, calls the

@@ -1,6 +1,6 @@
 """Reorderer base: ops producing inverse permutations.
 
-TPU-native analogue of the reference reorder layer
+JAX-native analogue of the reference reorder layer
 (reference: src/sparsebase/reorder/reorderer.h:37-118). Every reorderer
 returns an **inverse permutation** array ``order[old_id] = new_id``
 (reorderer.h:49-52), as a host numpy or device jax array matching the

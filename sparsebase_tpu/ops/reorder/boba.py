@@ -1,6 +1,6 @@
 """BOBA reordering ("Batched Order By Attachment").
 
-TPU-native analogue of ``reorder::BOBAReorder``
+JAX-native analogue of ``reorder::BOBAReorder``
 (reference: src/sparsebase/reorder/boba_reorder.cc:33-160; params
 boba_reorder.h:13-18). Reference semantics: sort COO entries by
 (col, row); emit vertices by first appearance in the sequence

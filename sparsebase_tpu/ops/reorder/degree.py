@@ -1,9 +1,9 @@
 """Degree reordering: counting-sort rows by degree.
 
-TPU-native analogue of ``reorder::DegreeReorder``
+JAX-native analogue of ``reorder::DegreeReorder``
 (reference: src/sparsebase/reorder/degree_reorder.cc:20-60; params
-degree_reorder.h:15-18). The reference runs a counting sort; on TPU a
-single stable key-sort (XLA sort unit) is the natural formulation and
+degree_reorder.h:15-18). The reference runs a counting sort; on the
+device a single stable key-sort is the natural formulation and
 preserves the same stable tie order.
 """
 

@@ -1,6 +1,6 @@
 """Gray-code reordering.
 
-TPU-native redesign of ``reorder::GrayReorder``
+JAX-native redesign of ``reorder::GrayReorder``
 (reference: src/sparsebase/reorder/gray_reorder.cc, 429 LoC; params
 gray_reorder.h:13-28). Semantics preserved:
 

@@ -1,6 +1,6 @@
 """Reorder heatmap: b×b block-density of a (re)ordered matrix.
 
-TPU-native analogue of ``reorder::ReorderHeatmap``
+JAX-native analogue of ``reorder::ReorderHeatmap``
 (reference: src/sparsebase/reorder/reorder_heatmap.cc:42-120; params
 ReorderHeatmapParams{num_parts}). A three-input op (CSR + row perm array
 + col perm array, both inverse permutations). Density[bu, bv] = count of

@@ -1,6 +1,6 @@
 """Nested-dissection fill-reducing ordering (METIS_NodeND-equivalent).
 
-TPU-native analogue of ``reorder::MetisReorder``
+JAX-native analogue of ``reorder::MetisReorder``
 (reference: src/sparsebase/reorder/metis_reorder.cc:26-60, wrapping
 external ``METIS_NodeND``; params metis_reorder.h:15). Native scheme:
 

@@ -1,6 +1,6 @@
 """Rabbit-order-style community/locality clustering reordering.
 
-TPU-native analogue of ``reorder::RabbitReorder``
+JAX-native analogue of ``reorder::RabbitReorder``
 (reference: src/sparsebase/reorder/rabbit_reorder.cc:25-50, wrapping the
 vendored rabbit_order library's ``aggregate`` + ``compute_perm``).
 Native scheme following the same structure (community aggregation into a

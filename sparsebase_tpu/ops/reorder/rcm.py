@@ -1,6 +1,6 @@
 """Reverse Cuthill–McKee reordering.
 
-TPU-native redesign of ``reorder::RCMReorder``
+JAX-native redesign of ``reorder::RCMReorder``
 (reference: src/sparsebase/reorder/rcm_reorder.cc:22-166). The reference
 is a sequential BFS with a min-degree priority queue per parent plus a
 pseudo-peripheral root search by repeated BFS. Key observation enabling a
@@ -154,20 +154,6 @@ def _rcm_device(csr: CSR, peripheral_iters: int = 2):
     import jax
     import jax.numpy as jnp
 
-    from ...config import get_config
-
-    if csr.nrows > get_config().rcm_device_max_n:
-        from ...utils.exceptions import ReorderError
-
-        raise ReorderError(
-            f"device RCM is limited to n <= {get_config().rcm_device_max_n} "
-            f"vertices (got {csr.nrows}): beyond the measured-good size "
-            "the level-synchronous while_loop faults the TPU and wedges "
-            "the chip (ROUND4_NOTES.md). Use the host reorderer "
-            "(csr.to_host()) or raise config.rcm_device_max_n only with "
-            "chip evidence."
-        )
-
     n = csr.nrows
     nnz = csr.nnz
     indptr = csr.indptr
@@ -259,15 +245,11 @@ def _rcm_device(csr: CSR, peripheral_iters: int = 2):
     visited0 = jnp.zeros((n,), bool)
     curr0 = jnp.full((n,), INF, jnp.int32)
     comp0 = jnp.zeros((n,), jnp.int32)
-    # Host-chunked launch (round 5): one unbounded while_loop sweeping
-    # the whole BFS crashed the TPU worker once its execution ran long
-    # (the n=4M fault of ROUND4_NOTES.md; same signature as the sparse
-    # triangle kernel at 4M nnz — see ops/feature/sparse_common.py).
-    # Run at most K BFS rounds per device program and let Python loop,
-    # syncing one "all visited" scalar per launch. Under an enclosing
-    # jit trace (rcm_pipeline) the host loop is untraceable, so the
-    # single while_loop is kept there — jitted pipelines are bounded by
-    # config.rcm_device_max_n like every device-RCM entry.
+    # Host-chunked launch: at most K BFS rounds per device program,
+    # with Python looping and syncing one "all visited" scalar per
+    # launch. It bounds the length of one device program; K is not yet
+    # measured on the GPU. Under an enclosing jit trace (rcm_pipeline)
+    # the host loop is untraceable, so the single while_loop runs there.
     state0 = (pos0, visited0, curr0, jnp.int32(0), comp0, jnp.int32(0))
     if isinstance(csr.indptr, jax.core.Tracer):
         pos, visited, _, _, comp_of, _ = jax.lax.while_loop(

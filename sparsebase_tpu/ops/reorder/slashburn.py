@@ -1,6 +1,6 @@
 """SlashBurn reordering: iterative k-hubset removal + spoke ordering.
 
-TPU-native redesign of ``reorder::SlashburnReorder``
+JAX-native redesign of ``reorder::SlashburnReorder``
 (reference: src/sparsebase/reorder/slashburn_reorder.cc, 424 LoC; params
 slashburn_reorder.h:14-23). Layout semantics preserved:
 

@@ -1,4 +1,4 @@
-"""Mesh-sharded formats + distributed ops (TPU-only layer, SURVEY.md §5)."""
+"""Mesh-sharded formats + distributed ops (multi-device layer, SURVEY.md §5)."""
 
 from .dist import (
     bfs_levels,

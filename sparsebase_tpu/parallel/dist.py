@@ -1,9 +1,9 @@
-"""Distributed kernels over ShardedCSR via shard_map + ICI collectives.
+"""Distributed kernels over ShardedCSR via shard_map + collectives.
 
 The north-star layer (SURVEY.md §2.13, §5 "distributed communication
 backend"): the reference's only inter-device path is a CUDA P2P memcpy
 (converter/converter_cuda.cu:12-22); here sparse preprocessing runs SPMD
-over a mesh with XLA collectives (``psum`` / ``all_gather``) riding ICI:
+over a mesh with XLA collectives (``psum`` / ``all_gather``) over the interconnect:
 
 * :func:`spmv` — row-sharded SpMV, replicated x, sharded y
 * :func:`degrees` — per-vertex degrees, sharded rows
@@ -37,7 +37,7 @@ from .sharded import ShardedCSR
 
 def _local_row_of(indptr_local, width):
     """Row id (local) of every nnz slot in a padded shard — scatter row
-    markers + prefix sum (searchsorted is ~50x slower on TPU)."""
+    markers + prefix sum (no per-element searchsorted loop)."""
     marks = jnp.zeros((width,), jnp.int32).at[indptr_local[:-1]].add(1, mode="drop")
     return jnp.cumsum(marks) - 1
 
@@ -349,7 +349,7 @@ def _structure_runner(mesh, axis, n, d, rows, width):
         )
         grows = (shard_id * rows + jnp.arange(rows)).astype(jnp.int32)
         has = (indptr_l[1:] > indptr_l[:-1]) & (grows < n)
-        # f32 accumulation: x64 is unavailable on this TPU config and int32
+        # f32 accumulation: x64 is off and int32
         # overflows past 2^31; f32 keeps ~7 digits which property tests use
         prof_local = jnp.sum(
             jnp.where(has, jnp.maximum(grows - mincol, 0), 0).astype(jnp.float32)

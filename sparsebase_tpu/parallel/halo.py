@@ -2,8 +2,7 @@
 
 The kernels in :mod:`.dist` exchange dense ``(n,)`` vectors with ``psum``
 — correct, but the communication volume is O(n * D) per step regardless
-of the partition quality. This module is the scalable path (VERDICT.md
-round-1 item 2; SURVEY.md §2.13 "frontier BFS with halo exchange"): each
+of the partition quality. This module is the scalable path (SURVEY.md §2.13 "frontier BFS with halo exchange"): each
 shard ships only the vertex values its neighbors actually read, using the
 precomputed halo lists on :class:`~.sharded.ShardedCSR`
 (``halo_send/halo_counts/halo_map``) and one ``jax.lax.all_to_all`` per
@@ -1062,8 +1061,7 @@ def bfs_levels_multilevel(
     exchanges — there is no known work-efficient sub-diameter BFS (the
     NC alternative, min-plus matrix powering, is O(n³ log n) work), so a
     weak-scaled stencil (diameter ∝ n ∝ d) *cannot* hold efficiency for
-    exact levels; that impossibility is recorded with the scaling
-    results (SCALING_r05.json). What an RCM-class *ordering* needs is a
+    exact levels. What an RCM-class *ordering* needs is a
     smooth peeling structure, not exact distances, and that admits a
     multilevel escape: contract ``L = log2(n / coarsen_until)`` levels
     of heavy-edge matching (each roughly halves the diameter), run the
@@ -1417,8 +1415,7 @@ def slashburn_reorder(
     scale (nnz ≫ ``host_tail_nnz``) the distributed rounds carry the
     load and compaction keeps them O(live nnz). Set ``host_tail=0`` /
     ``host_tail_nnz=0`` / ``compact_ratio=0`` to disable any tier
-    (DISTSCALE_r05.json records both hybrid and pure-distributed
-    times; the orders are identical). Each phase compiles runners for
+    (the hybrid and pure-distributed orders are identical). Each phase compiles runners for
     its own shapes — keep the persistent compilation cache on
     (CLAUDE.md) so phases reuse across runs.
     """

@@ -1,9 +1,11 @@
 """Device-mesh helpers.
 
-The TPU-native replacement for the reference's multi-device story (CUDA
+The JAX-native replacement for the reference's multi-device story (CUDA
 peer-to-peer copies, reference: src/sparsebase/converter/converter_cuda.cu:
-12-22): placement over a ``jax.sharding.Mesh`` with XLA collectives over
-ICI, per SURVEY.md §2.13/§5.
+12-22): placement over a ``jax.sharding.Mesh`` with XLA collectives over the
+devices' interconnect (NVLink between the GPUs of one host), per
+SURVEY.md §2.13/§5. The cards of one host reach each other all to all,
+so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,16 +1,17 @@
 """Multi-host (DCN) wiring for the distributed layer.
 
-SURVEY.md §2.13: intra-slice communication rides ICI via the shard_map
+SURVEY.md §2.13: communication within a host rides the device
+interconnect via the shard_map
 collectives in :mod:`.dist` / :mod:`.halo`; **across hosts** the same
 code runs unchanged once ``jax.distributed`` is initialized — the mesh
 then spans every process's devices and XLA routes the collectives over
-DCN between hosts and ICI within them. The reference has no multi-node
+the network between hosts and the device interconnect within them. The reference has no multi-node
 path at all (its distribution story ends at CUDA P2P,
 converter/converter_cuda.cu:12-22).
 
-This environment exposes a single chip, so multi-host execution cannot
-be tested here; what this module provides is the (thin, standard)
-bootstrap those runs need, kept separate so single-host users never
+Multi-host execution has only run as several CPU processes on one host
+(``tools/multiproc_dcn.py``); what this module provides is the (thin,
+standard) bootstrap those runs need, kept separate so single-host users never
 touch ``jax.distributed``:
 
 * :func:`initialize` — process-group bootstrap (coordinator address +
@@ -40,7 +41,7 @@ def initialize(
 ) -> bool:
     """Initialize ``jax.distributed`` (idempotent). With no arguments the
     values come from the standard env vars (``JAX_COORDINATOR_ADDRESS``
-    etc. / the TPU metadata server on real pods). Returns True if a
+    etc.). Returns True if a
     multi-process group is active afterwards."""
     import jax
 

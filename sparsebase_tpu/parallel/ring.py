@@ -1,20 +1,20 @@
-"""Ring-collective MXU kernels over ShardedCSR: distributed triangle
+"""Ring-collective matmul kernels over ShardedCSR: distributed triangle
 counting and per-edge Jaccard weights.
 
 The reference's only GPU kernel is Jaccard (reference:
 src/sparsebase/feature/jaccard_weights_cuda.cu:8-150, a binary-search
 warp kernel on one device) and its TriangleCount is sequential host code
 (reference: src/sparsebase/feature/triangle_count.cc:141-205). The
-TPU-native recast moves both onto the **MXU**: neighborhood
+recast here moves both onto **matrix products**: neighborhood
 intersections are exactly the entries of ``A·Aᵀ`` (and triangles the
 entries of ``A²`` masked by ``A``), so each device densifies its local
 row block to a 0/1 ``bfloat16`` tile and the full products are built by
 a **ring all-gather matmul** — each step multiplies against the visiting
 row block and forwards it to the mesh neighbor with
 ``jax.lax.ppermute``, the classic collective-matmul overlap pattern
-(compute on block k while block k+1 rides ICI; XLA schedules the
-``ppermute`` concurrently with the ``dot``). This completes the ICI
-collective family used by the package: ``psum`` / ``all_gather`` /
+(compute on block k while block k+1 crosses the interconnect; XLA
+schedules the ``ppermute`` concurrently with the ``dot``). This
+completes the collective family used by the package: ``psum`` / ``all_gather`` /
 ``all_to_all`` / ``reduce_scatter`` (:mod:`.sharded2d`) / ``ppermute``
 (here).
 
@@ -44,7 +44,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from jax import shard_map
 
-from ..utils.exact import combine_wrapped
+from ..utils.exact import combine_wrapped, ratio_f32
 from .dist import _local_row_of, _statics
 from .sharded import ShardedCSR
 
@@ -177,8 +177,9 @@ def _jaccard_runner(mesh, axis, n, d, rows, width):
         deg_l = (indptr_l[1:] - indptr_l[:-1]).astype(jnp.float32)
         deg_all = jax.lax.all_gather(deg_l, axis).reshape(-1)  # (np_pad,)
         union = deg_l[lrow] + deg_all[indices_l] - common
-        jac = jnp.where(valid, common / jnp.maximum(union, 1.0), 0.0)
-        return jac.astype(jnp.float32)[None, :]
+        ratio = ratio_f32(common.astype(jnp.int32), jnp.maximum(union, 1.0).astype(jnp.int32))
+        jac = jnp.where(valid, ratio, 0.0)
+        return jac[None, :]
 
     fn = shard_map(
         body, mesh=mesh, in_specs=(P(axis), P(axis), P(axis)), out_specs=P(axis)
@@ -217,9 +218,9 @@ def jaccard_weights(sh: ShardedCSR, mesh: Mesh):
 # * per-edge |N(u) ∩ N(v)| = binary search of N(u)'s elements (chunked
 #   to bound the (budget, chunk) tile) in the visiting block's row v.
 #
-# Crossover: use the dense ring while rows·n ≤ MAX_DENSE_ELEMS — its
-# MXU matmuls win there (BENCH_local.md: 79 TFLOP/s at n=16k); past the
-# memory wall the sparse ring is the only path and `triangle_count` /
+# Crossover: use the dense ring while rows·n ≤ MAX_DENSE_ELEMS (the
+# bf16 matmuls; not yet measured against the sparse ring on the GPU);
+# past the memory wall the sparse ring is the only path and `triangle_count` /
 # `jaccard_weights` fall back to it automatically.
 
 _CAND_CHUNK = 128  # candidate-tile minor size: bounds (budget, chunk) temps
@@ -351,7 +352,8 @@ def _sparse_common_runner(mesh, axis, n, d, rows, width, wmax, budget, mode):
         deg_all = jax.lax.all_gather(deg_l, axis).reshape(-1)
         cf = common.astype(jnp.float32)
         union = deg_l[lrow] + deg_all[jnp.minimum(ind, np_pad - 1)] - cf
-        jac = jnp.where(valid, cf / jnp.maximum(union, 1.0), 0.0)
+        ratio = ratio_f32(common, jnp.maximum(union, 1.0).astype(jnp.int32))
+        jac = jnp.where(valid, ratio, 0.0)
         return jac[None, :]
 
     out_specs = (P(), P()) if mode == "triangles" else P(axis)

@@ -1,11 +1,11 @@
 """2-D mesh-sharded CSR: (row-block × column-block) distribution.
 
-Completes the ICI collective family (SURVEY.md §2.13 names
+Completes the collective family (SURVEY.md §2.13 names
 ``psum/all_gather/all_to_all/ppermute`` — and ``reduce_scatter`` is the
 canonical SpMV reduction): the matrix is tiled over a 2-D mesh, x is
 sharded along the column axis, every device computes its tile's partial
 products, and the row sums are combined with ``jax.lax.psum_scatter``
-(reduce-scatter riding ICI) so y comes out sharded over *both* axes —
+(reduce-scatter over the interconnect) so y comes out sharded over *both* axes —
 no device ever holds a replicated n-vector.
 
 Layout (Dr × Dc mesh, axes (x, y); R rows / C cols per tile, padded):
@@ -86,43 +86,31 @@ class Sharded2DCSR(Format):
         rows = -(-rows // dc) * dc
         cols = -(-m // dc)
 
-        # split every row's entries by column block (host pass)
-        tile_rows = [[[] for _ in range(dc)] for _ in range(dr)]  # lists of (lens, cols, vals)
+        # split every row's entries by column block (vectorized host pass;
+        # within a tile the entries keep their CSR order)
+        row_of = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+        tile_r = row_of // rows
+        tile_c = np.minimum(indices // cols, dc - 1)
         counts = np.zeros((dr, dc), np.int64)
-        per_tile = [[([], [], []) for _ in range(dc)] for _ in range(dr)]
+        sels = {}
         for i in range(dr):
-            lo, hi = min(i * rows, n), min((i + 1) * rows, n)
-            for r in range(lo, hi):
-                s, e = indptr[r], indptr[r + 1]
-                c = indices[s:e]
-                blk = np.minimum(c // cols, dc - 1)
-                for j in range(dc):
-                    sel = blk == j
-                    lens, cc, vv = per_tile[i][j]
-                    lens.append(int(sel.sum()))
-                    if sel.any():
-                        cc.append(c[sel] - j * cols)
-                        if vals is not None:
-                            vv.append(vals[s:e][sel])
-            # rows beyond n: zero-length
             for j in range(dc):
-                lens, cc, vv = per_tile[i][j]
-                lens.extend([0] * (rows - len(lens)))
-                counts[i, j] = sum(lens)
+                sel = np.nonzero((tile_r == i) & (tile_c == j))[0]
+                sels[i, j] = sel
+                counts[i, j] = len(sel)
 
         width = max(int(counts.max()), 1)
         lp = np.zeros((dr, dc, rows + 1), np.int32)
         li = np.zeros((dr, dc, width), np.int32)
         lv = None if vals is None else np.zeros((dr, dc, width), vals.dtype)
-        for i in range(dr):
-            for j in range(dc):
-                lens, cc, vv = per_tile[i][j]
-                lp[i, j, 1:] = np.cumsum(lens)
-                cnt = int(counts[i, j])
-                if cnt:
-                    li[i, j, :cnt] = np.concatenate(cc)
-                    if lv is not None:
-                        lv[i, j, :cnt] = np.concatenate(vv)
+        for (i, j), sel in sels.items():
+            lens = np.bincount(row_of[sel] - i * rows, minlength=rows)
+            lp[i, j, 1:] = np.cumsum(lens)
+            cnt = len(sel)
+            if cnt:
+                li[i, j, :cnt] = indices[sel] - j * cols
+                if lv is not None:
+                    lv[i, j, :cnt] = vals[sel]
         sharding = NamedSharding(mesh, P(axes[0], axes[1]))
         put = lambda a: jax.device_put(a, sharding)
         return Sharded2DCSR(

@@ -1,6 +1,6 @@
 """Dtype utilities: overflow-checked array casting and dtype universes.
 
-TPU-native replacement for the reference's compile-time template-type
+JAX-native replacement for the reference's compile-time template-type
 machinery (``CanTypeFitValue`` / ``isTypeConversionSafe`` /
 ``ConvertArrayType``, reference: src/sparsebase/utils/utils.h:39-149).
 Where the reference stamps out a cartesian product of explicit template

@@ -1,6 +1,6 @@
 """HTML dashboard visualizer (reference-report parity).
 
-TPU-native analogue of the reference Visualizer
+JAX-native analogue of the reference Visualizer
 (reference: src/sparsebase/utils/visualizer.cc:18-578 + style.css, 744
 LoC): a standalone styled HTML dashboard with
 

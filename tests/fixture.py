@@ -16,7 +16,13 @@ heatmaps and degree features, plus the property-check helpers
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
+
+# the reference's ash958, symmetrized to a 958x958 pattern (A ∪ Aᵀ with
+# duplicates kept), as committed with the golden parity outputs
+ASH958_SYM = str(Path(__file__).parent / "golden" / "ash958_sym.mtx")
 
 N = 3
 NNZ = 4

@@ -1,4 +1,4 @@
-"""DIA format + Pallas banded SpMV tests."""
+"""DIA format + banded SpMV tests."""
 
 import numpy as np
 import pytest
@@ -10,7 +10,6 @@ from sparsebase_tpu.convert.kernels import csr_to_dia, dia_to_csr
 from sparsebase_tpu.formats.dia import DIA
 from sparsebase_tpu.ops.kernels import (
     banded_spmv,
-    banded_spmv_pallas,
     dia_spmv_reference,
 )
 
@@ -60,6 +59,12 @@ class TestDIAFormat:
         dia = csr_to_dia(csr)
         np.testing.assert_allclose(np.asarray(dia.to_dense()), np.asarray(tridiag(32).to_dense()))
 
+    def test_device_conversion_graph_edge(self):
+        # the conversion graph runs CSR -> DIA on a device input too
+        dia = tridiag(32).to_device().convert(DIA)
+        assert not isinstance(dia.data, np.ndarray)
+        np.testing.assert_allclose(np.asarray(dia.to_dense()), np.asarray(tridiag(32).to_dense()))
+
     def test_rectangular(self):
         csr = fx.make_csr()  # square fixture; now a wide one
         import dataclasses
@@ -91,46 +96,43 @@ class TestBandedSpMV:
         ref = np.asarray(dia_spmv_reference(dia, x))
         np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-4)
 
-    def test_pallas_kernel_matches(self, rng):
-        for n in (100, 257, 1024):
-            csr = tridiag(n)
-            dia = csr_to_dia(csr)
-            x = rng.standard_normal(n).astype(np.float32)
-            y = np.asarray(banded_spmv_pallas(dia, x))
-            ref = np.asarray(dia_spmv_reference(dia, x))
-            np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-3)
-
-    def test_pallas_bf16_band(self, rng):
-        # bf16 band values, f32 accumulate (the strided-read saver)
+    @pytest.mark.parametrize(
+        "case", ["tridiag-100", "tridiag-257", "tridiag-1024", "bf16-band", "wide-band"]
+    )
+    def test_banded_kernel_matches(self, rng, case):
+        # the DIA SpMV against the plain reference
         import jax.numpy as jnp
 
-        n = 513
-        csr = tridiag(n)
-        dia = csr_to_dia(csr).astype(jnp.bfloat16)
+        if case.startswith("tridiag"):
+            n = int(case.split("-")[1])
+            dia = csr_to_dia(tridiag(n))
+            ref_dia, rtol, atol = dia, 1e-4, 1e-3
+        elif case == "bf16-band":
+            # bf16 band values, f32 accumulate
+            n = 513
+            ref_dia = csr_to_dia(tridiag(n))
+            dia = ref_dia.astype(jnp.bfloat16)
+            rtol, atol = 2e-2, None
+        else:
+            n = 640
+            dense = np.zeros((n, n), np.float32)
+            for off in (-150, -7, 0, 2, 133):
+                i = np.arange(n)
+                j = i + off
+                ok = (j >= 0) & (j < n)
+                dense[i[ok], j[ok]] = rng.standard_normal(int(ok.sum())).astype(np.float32)
+            r, c = np.nonzero(dense)
+            ref_dia = dia = csr_to_dia(
+                COO.new(r.astype(np.int32), c.astype(np.int32), dense[r, c], shape=(n, n)).convert(CSR)
+            )
+            rtol, atol = 1e-4, 1e-4
         x = rng.standard_normal(n).astype(np.float32)
-        y = np.asarray(banded_spmv_pallas(dia, x))
-        ref = np.asarray(dia_spmv_reference(csr_to_dia(csr), x))
-        # bf16 mantissa is 8 bits: error scales with the result magnitude
-        np.testing.assert_allclose(
-            y, ref, rtol=2e-2, atol=2e-2 * max(1.0, float(np.abs(ref).max()))
-        )
-
-    def test_pallas_wide_band(self, rng):
-        n = 640
-        dense = np.zeros((n, n), np.float32)
-        for off in (-150, -7, 0, 2, 133):
-            i = np.arange(n)
-            j = i + off
-            ok = (j >= 0) & (j < n)
-            dense[i[ok], j[ok]] = rng.standard_normal(int(ok.sum())).astype(np.float32)
-        r, c = np.nonzero(dense)
-        csr = COO.new(
-            r.astype(np.int32), c.astype(np.int32), dense[r, c], shape=(n, n)
-        ).convert(CSR)
-        dia = csr_to_dia(csr)
-        x = rng.standard_normal(n).astype(np.float32)
-        y = np.asarray(banded_spmv_pallas(dia, x))
-        np.testing.assert_allclose(y, dense.astype(np.float64) @ x, rtol=1e-4, atol=1e-4)
+        y = np.asarray(banded_spmv(dia, x))
+        ref = np.asarray(dia_spmv_reference(ref_dia, x))
+        if atol is None:
+            # bf16 mantissa is 8 bits: error scales with the result magnitude
+            atol = 2e-2 * max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(y, ref, rtol=rtol, atol=atol)
 
     def test_wide_band_random(self, rng):
         n = 200
@@ -150,7 +152,7 @@ class TestBandedSpMV:
         np.testing.assert_allclose(y, dense.astype(np.float64) @ x, rtol=1e-4, atol=1e-4)
 
     def test_rcm_then_banded_pipeline(self):
-        # the showcase flow: reorder -> band -> pallas kernel
+        # the showcase flow: reorder -> band -> banded SpMV
         from sparsebase_tpu.bases import ReorderBase
         from sparsebase_tpu.ops.reorder import RCMReorder
 

@@ -1,7 +1,5 @@
-"""ELL (row-padded) format: conversions, SpMV, and the fast-path
-row-gather permutation (BENCH_local.md round 3: row permutes at ~1
-ns/nnz and per-row sorts at 0.36 on this layout — the TPU-native
-relocation path for pipelines that stay padded)."""
+"""ELL (row-padded) format: conversions, SpMV, and the row-gather
+permutation (the relocation path for pipelines that stay padded)."""
 
 import numpy as np
 import pytest

@@ -1,6 +1,8 @@
 """Experiment harness + visualizer tests (parity:
 tests/suites/sparsebase/experiment/*)."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -111,9 +113,7 @@ class TestVisualizer:
 
         from sparsebase_tpu.bases import IOBase, ReorderBase
 
-        csr = IOBase.read_mtx_to_csr(
-            "/root/reference/examples/data/ash958.mtx"
-        )
+        csr = IOBase.read_mtx_to_csr(fx.ASH958_SYM)
         viz = Visualizer(csr, num_parts=32, name="ash958")
         for alias in ("rcm", "degree", "gray"):
             order = ReorderBase.reorder(alias, csr)
@@ -140,10 +140,10 @@ class TestVisualizer:
         out = tmp_path / "cli.html"
         r = subprocess.run(
             [sys.executable, "-m", "sparsebase_tpu.utils.visualizer",
-             "/root/reference/examples/data/ash958.mtx", str(out),
+             fx.ASH958_SYM, str(out),
              "--orderings", "rcm", "--parts", "16"],
             capture_output=True, text=True, timeout=300,
-            cwd="/root/repo",
+            cwd=str(Path(__file__).parent.parent),
         )
         assert r.returncode == 0, r.stderr[-2000:]
         assert out.exists() and "rcm" in out.read_text()
@@ -165,7 +165,7 @@ class TestDistributedExperiment:
             pass_preprocess,
         )
 
-        mtx = "tests/golden/ash958_sym.mtx"
+        mtx = fx.ASH958_SYM
         ex = ConcreteExperiment(warmup=0)
         ex.add_data_loader(load_sharded_csr(), [((mtx,), None)])
         ex.add_preprocess("pass", pass_preprocess)

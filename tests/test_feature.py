@@ -192,7 +192,7 @@ class TestTriangleCount:
         assert TriangleCount().get_triangle_count(g.to_device()) == expect
 
     def test_device_mxu_path(self, rng):
-        # device CSR takes the dense MXU formulation; must agree with host
+        # device CSR takes the dense matmul formulation; must agree with host
         n = 40
         dense = (rng.random((n, n)) < 0.15).astype(np.int32)
         np.fill_diagonal(dense, 0)
@@ -256,7 +256,7 @@ def _rand_sym_csr(rng, n, avg_deg, self_loops=False, dups=False):
 
 class TestSparseDeviceTier:
     """Round-5: single-chip chunked owner-window kernel (sparse_common.py)
-    — the big-n tier past the dense MXU wall / flat-expansion wall, the
+    — the big-n tier past the dense matmul wall / flat-expansion wall, the
     single-chip port of parallel/ring.py's sparse ring (VERDICT r4 #4)."""
 
     def test_triangles_sparse_matches_host(self, rng):

@@ -2,7 +2,7 @@
 boundary-proportional communication (VERDICT round-1 item 2).
 
 The reference has no distributed layer (SURVEY.md §2.13) — these cover
-TPU-only north-star work on the virtual 8-device CPU mesh.
+Multi-device work on the virtual 8-device CPU mesh.
 """
 
 import jax

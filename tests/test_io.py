@@ -216,9 +216,11 @@ class TestMTXReader:
         np.testing.assert_allclose(np.asarray(back.vals), fx.ORIGINAL_ARRAY)
 
     def test_real_matrix_ash958(self):
-        csr = IOBase.read_mtx_to_csr("/root/reference/examples/data/ash958.mtx")
-        assert csr.shape == (958, 292)
-        assert csr.nnz == 1916
+        # A ∪ Aᵀ of the reference's 958x292 ash958: 1916 entries each way,
+        # duplicates (the doubled diagonal) kept as stored
+        csr = IOBase.read_mtx_to_csr(fx.ASH958_SYM)
+        assert csr.shape == (958, 958)
+        assert csr.nnz == 3832
 
 
 class TestEdgeList:
@@ -505,8 +507,8 @@ class TestPigoReaders:
     def test_pigo_ash958(self):
         from sparsebase_tpu.bases import IOBase
 
-        csr = IOBase.read_pigo_mtx_to_csr("/root/reference/examples/data/ash958.mtx")
-        ref = IOBase.read_mtx_to_csr("/root/reference/examples/data/ash958.mtx")
+        csr = IOBase.read_pigo_mtx_to_csr(fx.ASH958_SYM)
+        ref = IOBase.read_mtx_to_csr(fx.ASH958_SYM)
         np.testing.assert_array_equal(np.asarray(csr.indptr), np.asarray(ref.indptr))
         np.testing.assert_array_equal(np.asarray(csr.indices), np.asarray(ref.indices))
 

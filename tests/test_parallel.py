@@ -1,7 +1,7 @@
 """Distributed-layer tests on the virtual 8-device CPU mesh.
 
 The reference has no distributed tests (SURVEY.md §4); these cover the
-TPU-only north-star layer: sharded containers + shard_map collectives.
+Multi-device layer: sharded containers + shard_map collectives.
 """
 
 import jax

@@ -94,13 +94,9 @@ class TestRCM:
         assert bandwidth_of(csr, order) <= bandwidth_of(csr)
 
     def test_ash958_bandwidth(self):
-        csr = IOBase.read_mtx_to_csr("/root/reference/examples/data/ash958.mtx")
-        # make square+symmetric pattern graph from the rectangular matrix
-        n = max(csr.shape)
-        coo = csr.convert(COO)
-        row = np.concatenate([np.asarray(coo.row), np.asarray(coo.col)])
-        col = np.concatenate([np.asarray(coo.col), np.asarray(coo.row)])
-        g = COO.new(row, col, None, shape=(n, n)).convert(CSR)
+        # the square symmetric pattern graph of the rectangular matrix
+        g = IOBase.read_mtx_to_csr(fx.ASH958_SYM)
+        n = g.nrows
         order = RCMReorder().get_reorder(g)
         fx.check_reorder(order, n)
         bw0, bw1 = bandwidth_of(g), bandwidth_of(g, order)
@@ -346,41 +342,19 @@ class TestReorderBaseFacade:
         np.testing.assert_array_equal(np.asarray(out.vals), [20.0, 30.0, 10.0])
 
 
-class TestDeviceRCMGuard:
-    def test_size_guard_raises_before_launch(self):
-        """Round 5 (VERDICT r4 weak #1): device RCM beyond the measured-
-        good size must refuse with a clean Python error instead of
-        faulting the chip (n=4M killed the client and wedged the v5e for
-        ~45 min in round 4). The limit lives in config.rcm_device_max_n
-        and is only raised with chip evidence."""
-        from sparsebase_tpu import set_config
+class TestDeviceRCMNoSizeKnob:
+    def test_device_rcm_has_no_size_limit(self):
+        """Device RCM takes any device input: the config has no size
+        knob, and the reorderer runs on the device (no host fallback)
+        with the same validity as the host path."""
+        import dataclasses
+
+        from sparsebase_tpu import get_config
         from sparsebase_tpu.ops.reorder.rcm import _rcm_device
-        from sparsebase_tpu.utils.exceptions import ReorderError
 
-        g = fx.make_csr().to_device()
-        try:
-            set_config(rcm_device_max_n=2)
-            with pytest.raises(ReorderError, match="device RCM is limited"):
-                _rcm_device(g)
-        finally:
-            set_config(rcm_device_max_n=1_000_000)
-        # under the limit the device path still runs
-        order = np.asarray(_rcm_device(g))
-        assert sorted(order.tolist()) == list(range(g.nrows))
-
-    def test_reorderer_falls_back_cleanly_oversize(self):
-        # the public RCMReorder facade on a device input over the limit
-        # must not fault either: it raises the same clean error (the
-        # caller chooses host explicitly, matching the guard's contract)
-        from sparsebase_tpu import set_config
-        from sparsebase_tpu.utils.exceptions import ReorderError
-
+        assert not [f.name for f in dataclasses.fields(get_config()) if "max_n" in f.name]
         g = fx.make_csr()
-        try:
-            set_config(rcm_device_max_n=2)
-            with pytest.raises(ReorderError):
-                RCMReorder().get_reorder(g.to_device())
-            host_order = RCMReorder().get_reorder(g)  # host path unaffected
-            assert sorted(np.asarray(host_order).tolist()) == list(range(g.nrows))
-        finally:
-            set_config(rcm_device_max_n=1_000_000)
+        order = RCMReorder().get_reorder(g.to_device())
+        assert not isinstance(order, np.ndarray)  # computed on the device
+        assert sorted(np.asarray(order).tolist()) == list(range(g.nrows))
+        assert sorted(np.asarray(_rcm_device(g.to_device())).tolist()) == list(range(g.nrows))

@@ -1,9 +1,9 @@
-"""Ring-collective (ppermute) MXU kernel tests: distributed triangle
+"""Ring-collective (ppermute) matmul kernel tests: distributed triangle
 counting and Jaccard weights vs the host implementations.
 
 The reference computes Jaccard on one GPU (jaccard_weights_cuda.cu) and
 triangles sequentially (triangle_count.cc:141-205); the ring kernels are
-mesh-distributed TPU-only work, verified here for exact agreement with
+mesh-distributed work, verified here for exact agreement with
 the host paths on the virtual 8-device CPU mesh.
 """
 

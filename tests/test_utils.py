@@ -89,3 +89,25 @@ class TestDtypeMachinery:
         assert index_dtype_for(100) == np.int32 or str(index_dtype_for(100)).endswith("int32")
         big = index_dtype_for(2**40)
         assert "64" in str(np.dtype(big))
+
+
+class TestExactRatio:
+    @pytest.mark.parametrize("hi", [50, 5000, 1 << 24])
+    def test_matches_correctly_rounded_quotient(self, hi):
+        from sparsebase_tpu.utils.exact import ratio_f32
+
+        rng = np.random.default_rng(hi)
+        den = rng.integers(1, hi, 50_000).astype(np.int32)
+        num = rng.integers(0, hi, 50_000).astype(np.int32)
+        got = np.asarray(ratio_f32(num, den))
+        want = (num.astype(np.float64) / den).astype(np.float32)
+        np.testing.assert_array_equal(got, want)
+
+    def test_edges(self):
+        from sparsebase_tpu.utils.exact import ratio_f32
+
+        top = (1 << 24) - 1
+        num = np.array([0, 1, 1, 2, 3, 7, top, 1, 5, top], np.int32)
+        den = np.array([1, 1, 3, 3, 1, top, 1, top, 2, top - 1], np.int32)
+        want = (num.astype(np.float64) / den).astype(np.float32)
+        np.testing.assert_array_equal(np.asarray(ratio_f32(num, den)), want)

@@ -9,7 +9,7 @@ the full chain
   -> distributed RCM + SlashBurn + multilevel V-cycle
 
 asserting int32 arithmetic, buffer sizing and parity hold, and
-recording wall clock + comm bytes. Writes DISTSCALE_r05.json.
+recording wall clock + comm bytes. Prints the result as JSON.
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python tools/dist_at_scale.py [nnz_M (default 2.5)]
@@ -25,7 +25,6 @@ sys.path.insert(0, str(REPO))
 
 import numpy as np
 
-OUT = REPO / "DISTSCALE_r05.json"
 
 
 def main():
@@ -185,7 +184,6 @@ def main():
         and res["slashburn_modes_match"]
         and cut < rand_cut
     )
-    OUT.write_text(json.dumps(res, indent=1))
     print(json.dumps(res, indent=1))
 
 

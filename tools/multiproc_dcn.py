@@ -12,10 +12,9 @@ The same mesh-sharded code runs unchanged over the 2-process global
 mesh: distributed ingest (all_to_all crosses the process boundary),
 halo SpMV, distributed RCM. Rank 0 writes its results; the parent
 checks exact parity with phase 1 and records the cross-process
-collective step times next to the single-process ones (the sanity check
-SCALING_r03's projection constants never had).
+collective step times next to the single-process ones.
 
-Writes MULTIPROC_r05.json. Usage: python tools/multiproc_dcn.py
+Prints the report as JSON. Usage: python tools/multiproc_dcn.py
 (child mode: --rank R --port P, spawned internally).
 """
 
@@ -34,7 +33,6 @@ import numpy as np
 N = int(os.environ.get("MULTIPROC_N", 4096))
 AVG_DEG = 8
 SEED = 42
-OUT = REPO / "MULTIPROC_r05.json"
 
 
 def make_graph():
@@ -208,7 +206,6 @@ def parent():
             "cross-process collective overhead on this host."
         ),
     }
-    OUT.write_text(json.dumps(report, indent=1))
     print(json.dumps(report, indent=1))
     assert report["ok"], "multi-process parity FAILED"
 

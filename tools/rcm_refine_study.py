@@ -7,7 +7,7 @@ Runs on the virtual 8-device CPU mesh:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python tools/rcm_refine_study.py
 
-Results land in BENCH_local.md's table; ash958 (structured) is included
+Prints a table; ash958 (structured) is included
 as the control where distributed == host exactly.
 """
 
@@ -15,7 +15,8 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).parent.parent))
+REPO = Path(__file__).parent.parent
+sys.path.insert(0, str(REPO))
 
 import jax
 
@@ -44,9 +45,9 @@ def main():
     mesh = make_mesh(8)
 
     graphs = {}
-    # ash958 is rectangular (958x292): symmetrize to the bipartite
-    # adjacency the host reorderer works on before sharding
-    ash = IOBase.read_mtx_to_csr("/root/reference/examples/data/ash958.mtx")
+    # ash958 is rectangular (958x292); the committed golden copy is its
+    # symmetrized adjacency, deduplicated here before sharding
+    ash = IOBase.read_mtx_to_csr(str(REPO / "tests" / "golden" / "ash958_sym.mtx"))
     ar = np.asarray(ash.row_of_nnz(), dtype=np.int64)
     ac = np.asarray(ash.indices, dtype=np.int64)
     ns = ash.nrows

@@ -1,6 +1,5 @@
-"""One-command local validation (no TPU): full pytest, examples,
-graft-entry dryrun, and CPU dry-runs of the chip tools. Exit 0 iff
-everything passes. Run before ending a work round:
+"""One-command local validation on the CPU: full pytest, examples,
+graft-entry dryrun, and the visualizer CLI. Exit 0 iff everything passes:
 
     python tools/verify_all.py [--quick]
 
@@ -10,6 +9,7 @@ everything passes. Run before ending a work round:
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).parent.parent
@@ -38,8 +38,7 @@ def main():
     else:
         run("pytest (full)", [py, "-m", "pytest", "tests/", "-q"])
     run("examples", [py, "examples/run_all_examples.py"])
-    # dryrun branch only — the entry() compile check starts a TPU client
-    # on this image, and verify_all must stay chip-free
+    # dryrun branch only: it pins the CPU, so the run never opens a GPU
     run(
         "graft multichip dryrun (CPU mesh)",
         [py, "__graft_entry__.py"],
@@ -49,24 +48,9 @@ def main():
         },
     )
     run(
-        "chip suite CPU dry-run",
-        [py, "tools/r4_tpu_suite.py", "ABCDE", "0.4", "--cpu"],
-        env={"R4_TPU_OUT": "/tmp/r4_dryrun.json"},  # never clobber chip artifacts
-    )
-    run(
-        "dia probe CPU dry-run",
-        [py, "tools/probe_dia.py", "0.3", "--cpu"],
-        env={"R4_TPU_OUT": "/tmp/r4_dryrun.json"},
-    )
-    run(
-        "r5 chip suite CPU dry-run",
-        [py, "tools/r5_perf.py", "ABCDEF", "0.4", "--cpu"],
-        env={"R5_TPU_OUT": "/tmp/r5_dryrun.json"},
-    )
-    run(
         "visualizer CLI",
         [py, "-m", "sparsebase_tpu.utils.visualizer",
-         "/root/reference/examples/data/ash958.mtx", "/tmp/viz_check.html",
+         "tests/golden/ash958_sym.mtx", str(Path(tempfile.gettempdir()) / "viz_check.html"),
          "--orderings", "rcm", "--parts", "16"],
     )
     print("ALL LOCAL VALIDATION GREEN", flush=True)
